@@ -1,0 +1,23 @@
+"""stove_tpu_torch — the PyTorch/CUDA port of `stove_tpu`.
+
+The layout mirrors the JAX package module for module, so each counterpart
+is found under the same name:
+
+  envs/      billiards physics + in-memory test-corpus generation
+  models/    encoder, SuPAIR box encoding, graph-net dynamics, STOVE
+  ops/       Gaussian algebra, matching, the fused CUDA rollout kernel
+  train/     checkpoint bridge (reads the JAX npz files), evaluation
+  csrc/      hand-written CUDA C++ kernels, built with nvcc at first use
+  main.py    `python -m stove_tpu_torch.main restore=<run> mode=eval`
+
+The port imports torch, numpy and the standard library only.  Parameters
+are plain nested dicts/lists of tensors with the JAX package's key names
+and (in, out) weight layout, so a JAX checkpoint maps onto them 1:1.
+Entry points take an explicit `device`; they default to CUDA and raise
+when no card is present rather than running on the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from stove_tpu_torch.config import Config, PRESETS, make_config  # noqa: F401
+from stove_tpu_torch.device import resolve_device  # noqa: F401

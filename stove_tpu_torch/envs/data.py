@@ -1,0 +1,67 @@
+"""In-memory test-corpus generation (counterpart of
+`stove_tpu/envs/data.py`, without storage).
+
+`generate` simulates and renders a batch of billiards sequences on the
+requested device and quantises the frames to uint8 like the JAX corpora.
+Nothing is written to disk: the eval corpus is made anew from a seed.
+Ground-truth `states` per object are (x, y, vx, vy) in arena coordinates,
+recorded *before* each step (the reference layout).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from stove_tpu_torch.config import Config
+from stove_tpu_torch.envs import physics
+
+
+class Episode(NamedTuple):
+    """One batch of trajectories (leading dims N, T)."""
+    frames: torch.Tensor    # (N, T, img, img) uint8 or float32
+    states: torch.Tensor    # (N, T, O, 4) x, y, vx, vy (arena coords)
+    actions: torch.Tensor   # (N, T) int64 (zeros: billiards has none)
+    rewards: torch.Tensor   # (N, T) float32
+    radii: torch.Tensor     # (N, O) float32
+
+
+def simulate(cfg: Config, state: physics.EnvState, T: int) -> torch.Tensor:
+    """(N, T, O, 4) recorded states: frame t holds the state before step t."""
+    out = []
+    for _ in range(T):
+        out.append(torch.cat([state.pos, state.vel], -1))
+        state = physics.billiards_step(cfg, state)
+    return torch.stack(out, 1)
+
+
+def generate(cfg: Config, num: int, generator: Optional[torch.Generator],
+             device: torch.device = torch.device("cpu")) -> Episode:
+    """`num` sequences of cfg.seq_len frames from random initial states,
+    frames quantised to uint8."""
+    state = physics.init_state(cfg, num, generator, device)
+    states = simulate(cfg, state, cfg.seq_len)
+    frames = physics.render_sequence(cfg, states[..., :2], state.radii)
+    frames = torch.round(frames * 255.0).to(torch.uint8)
+    N, T = states.shape[:2]
+    return Episode(frames, states,
+                   torch.zeros((N, T), dtype=torch.long, device=device),
+                   torch.zeros((N, T), dtype=torch.float32, device=device),
+                   state.radii)
+
+
+def normalize_frames(frames: torch.Tensor) -> torch.Tensor:
+    """uint8 → float32 in [0, 1] (a cast only when already float)."""
+    if frames.dtype == torch.uint8:
+        return frames.to(torch.float32) / 255.0
+    return frames.to(torch.float32)
+
+
+def arena_to_model(cfg: Config, pos: torch.Tensor) -> torch.Tensor:
+    """Arena [0, A] coords → model/ST [−1, 1] coords."""
+    return pos / (cfg.arena_size / 2.0) - 1.0
+
+
+def model_to_arena(cfg: Config, pos: torch.Tensor) -> torch.Tensor:
+    return (pos + 1.0) * (cfg.arena_size / 2.0)

@@ -1,0 +1,117 @@
+"""Graph-net transition model p(z_t | z_{t−1}, a_{t−1}).
+
+Counterpart of `stove_tpu/models/dynamics.py::apply`: per-object embed and
+self MLPs, a relational MLP over all ordered pairs whose first layer is
+factored into receiver and sender halves, attention-gated pair sums with
+the diagonal masked, an output MLP giving (Δv, Δℓ, raw σ), Euler
+integration, and the optional open-loop std head and geometry-aware reward
+head.  Parameters are the JAX tree's dicts/lists with (in, out) weights.
+
+State layout per object: z_o = [sx, sy, x, y, vx, vy, ℓ_1..ℓ_cl].
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from stove_tpu_torch.config import Config
+from stove_tpu_torch.ops import gaussians
+
+# state slicing
+SIZE = slice(0, 2)
+POS = slice(2, 4)
+VEL = slice(4, 6)
+LAT = slice(6, None)
+
+
+class DynOut(NamedTuple):
+    mean: torch.Tensor      # (B, O, 6+cl) predicted next-state mean
+    std: torch.Tensor       # (B, O, 6+cl) transition std (sizes: size_std)
+    reward: torch.Tensor    # (B,) predicted reward (zeros without a head)
+    std_open: torch.Tensor  # (B, O, 6+cl) open-loop std (aliases std
+    #   unless cfg.open_loop_sigma and the checkpoint has the head)
+
+
+def mlp(layers, x: torch.Tensor) -> torch.Tensor:
+    """Dense stack x @ w + b with ReLU between layers, none after the last."""
+    for i, lyr in enumerate(layers):
+        x = x @ lyr["w"] + lyr["b"]
+        if i < len(layers) - 1:
+            x = torch.relu(x)
+    return x
+
+
+def apply(params: Dict, cfg: Config, z: torch.Tensor,
+          action: Optional[torch.Tensor] = None) -> DynOut:
+    """One transition step.  z: (B, O, 6+cl); action: (B,) int64 or None."""
+    B, O, _ = z.shape
+    inp = z
+    if cfg.action_conditioned:
+        if action is None:
+            action = torch.zeros((B,), dtype=torch.long, device=z.device)
+        onehot = F.one_hot(action.long(), cfg.num_actions).to(z.dtype)
+        inp = torch.cat([z, onehot[:, None, :].expand(B, O, -1)], -1)
+
+    e = mlp(params["embed"], inp)                             # (B, O, h)
+    s = mlp(params["self"], e)                                # (B, O, h)
+
+    # W·[e_o; e_j] = W_recv·e_o + W_send·e_j: no (B, O, O, 2h) concat
+    w1, rest = params["rel"][0], params["rel"][1:]
+    h_e = e.shape[-1]
+    recv = e @ w1["w"][:h_e]                                  # (B, O, h)
+    send = e @ w1["w"][h_e:]
+    pair_h = torch.relu(recv[:, :, None, :] + send[:, None, :, :]
+                        + w1["b"])                            # (B, O, O, h)
+    rel_att = mlp(rest, pair_h)                               # (B, O, O, h+1)
+    rel = rel_att[..., :-1]
+    att = torch.sigmoid(rel_att[..., -1:])
+    mask = (1.0 - torch.eye(O, dtype=z.dtype, device=z.device)
+            )[None, :, :, None]
+    r = torch.sum(rel * att * mask, dim=2)                    # (B, O, h)
+
+    sr = torch.cat([s, r], -1)
+    out = mlp(params["out"], sr)                              # (B, O, d_out)
+    cl = cfg.cl
+    dv = out[..., 0:2]
+    dl = out[..., 2:2 + cl]
+    raw_std = out[..., 2 + cl:6 + 2 * cl]
+
+    vel = z[..., VEL] + dv
+    pos = z[..., POS] + vel
+    lat = (z[..., LAT] + dl) if cfg.latent_residual else dl
+    mean = torch.cat([z[..., SIZE], pos, vel, lat], dim=-1)
+
+    std_pvl = gaussians.bounded_std(raw_std, cfg.min_dyn_std,
+                                    cfg.max_dyn_std)
+    size_std = torch.full_like(z[..., SIZE], cfg.size_std)
+    std = torch.cat([size_std, std_pvl], dim=-1)
+    if cfg.open_loop_sigma and "open" in params:
+        raw_open = mlp(params["open"], sr.detach())
+        open_pvl = gaussians.bounded_std(raw_open, cfg.min_open_std,
+                                         cfg.max_dyn_std)
+        std_open = torch.cat([size_std, open_pvl], dim=-1)
+    else:
+        std_open = std
+
+    if cfg.reward_head and "reward" in params:
+        # contact geometry of the predicted next state: per object its
+        # signed contact gap and raw min distance to the others, then an
+        # attention pool of per-object scores (dynamics.py:171-195)
+        ppos = mean[..., POS]
+        psize = torch.mean(mean[..., SIZE], dim=-1)           # (B, O)
+        pdiff = ppos[:, :, None, :] - ppos[:, None, :, :]
+        pdist = torch.sqrt(torch.sum(pdiff ** 2, -1) + 1e-8)  # (B, O, O)
+        gap = pdist - (psize[:, :, None] + psize[:, None, :])
+        big = 10.0 * torch.eye(O, dtype=z.dtype, device=z.device)[None]
+        min_gap = torch.amin(gap + big, dim=-1)
+        min_dist = torch.amin(pdist + big, dim=-1)
+        feat = torch.cat([s, r, min_gap[..., None], min_dist[..., None]], -1)
+        score = mlp(params["reward"], feat)[..., 0]           # (B, O)
+        att_r = torch.softmax(mlp(params["reward_att"], feat)[..., 0], -1)
+        reward = torch.sigmoid(torch.sum(att_r * score, dim=-1))
+    else:
+        reward = torch.zeros((B,), dtype=z.dtype, device=z.device)
+    return DynOut(mean, std, reward, std_open)

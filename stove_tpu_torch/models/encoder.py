@@ -1,0 +1,69 @@
+"""Per-frame encoder CNN: image → q(z_where) box parameters per object.
+
+Counterpart of `stove_tpu/models/encoder.py::apply`.  Parameters keep the
+JAX layouts (conv weights HWIO, dense weights (in, out)); three layout
+points have to match the JAX code exactly:
+
+* space-to-depth folds each s×s pixel block into channels in (row, col)
+  order within the block (encoder.py:79-82);
+* XLA's padding="SAME" at stride 2 pads (0, 1) on even sizes, not (1, 1);
+  `_same_pad` computes XLA's split and pads explicitly before the conv;
+* the flatten before `mlp1` is over NHWC, so features are moved back to
+  the last axis first (encoder.py:94).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from stove_tpu_torch.config import Config
+from stove_tpu_torch.ops import gaussians
+
+
+def _same_pad(n: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA "SAME" padding (before, after) for one spatial dim."""
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def apply(params: Dict, cfg: Config, frames: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """frames (B, H, W) → (mean, std), each (B, O, 4) = (sx, sy, tx, ty)."""
+    x = frames[..., None].to(torch.float32)                   # (B, H, W, 1)
+    s2d = max(1, cfg.encoder_space_to_depth)
+    if s2d > 1:
+        B, H, W, C = x.shape
+        x = x.reshape(B, H // s2d, s2d, W // s2d, s2d, C)
+        x = x.permute(0, 1, 3, 2, 4, 5).reshape(
+            B, H // s2d, W // s2d, s2d * s2d * C)
+    x = x.permute(0, 3, 1, 2)                                 # NCHW
+    n_convs = len(params["convs"])
+    for i, conv in enumerate(params["convs"]):
+        stride = 1 if (cfg.encoder_final_stride1 and i == n_convs - 1) else 2
+        w = conv["w"].permute(3, 2, 0, 1)                     # HWIO → OIHW
+        kh, kw = w.shape[2:]
+        top, bottom = _same_pad(x.shape[2], kh, stride)
+        left, right = _same_pad(x.shape[3], kw, stride)
+        x = F.pad(x, (left, right, top, bottom))
+        x = F.conv2d(x, w, stride=stride)
+        x = torch.relu(x + conv["b"][None, :, None, None])
+    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)         # NHWC flatten
+
+    def dense(layer, v):
+        return v @ layer["w"] + layer["b"]
+
+    x = torch.relu(dense(params["mlp1"], x))
+    x = torch.relu(dense(params["mlp2"], x))
+    out = dense(params["head"], x).reshape(-1, cfg.num_obj, 8)
+    raw_mean, raw_std = out[..., :4], out[..., 4:]
+
+    smin, smax = cfg.scale_min, cfg.scale_max
+    scales = smin + (smax - smin) * torch.sigmoid(raw_mean[..., 0:2] + 0.5)
+    pos = torch.tanh(raw_mean[..., 2:4]) * (1.0 - smin)
+    mean = torch.cat([scales, pos], dim=-1)
+    std = gaussians.bounded_std(raw_std, cfg.min_enc_std, cfg.max_enc_std)
+    return mean, std

@@ -1,0 +1,355 @@
+"""Fused whole-horizon rollout: one hand-written CUDA kernel for all H steps.
+
+Counterpart of `stove_tpu/ops/pallas_rollout.py::rollout_states`.  The
+kernel (`csrc/rollout.cu`) runs the action-free graph-net rollout of
+`models/dynamics.apply` for H steps in one launch, mean or sampled, with
+the state and every activation kept on chip; see the notes at the top of
+the source for its bound and design.
+
+* `build` compiles the source with plain `nvcc` for sm_90a into a shared
+  library under `build/kernels/` (listed in .gitignore) at first use and
+  loads it with ctypes.  Shapes are compile-time (-D flags from the config),
+  so a library is built once per (O, cl, h) and reused by content hash.
+* `prepare_params` packs the dynamics weights into the one flat f32 buffer
+  the kernel reads (`param_layout` gives its order).
+* `launch_kernel` checks device, dtype, shape and contiguity, allocates
+  the output and launches on the current stream; `launch_kernel.launches`
+  counts its launches.
+* `rollout` is the one device dispatch (`rollout_states` returns its
+  states): on a CUDA tensor it launches the kernel (or raises); on a CPU
+  tensor it runs `rollout_states_reference`, the plain PyTorch loop over
+  `dynamics.apply`, with noise drawn from the caller's generator.  There
+  is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from stove_tpu_torch.config import Config
+from stove_tpu_torch.models import dynamics as dyn_lib
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rollout.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+TILE = 16          # samples per block (STOVE_TB)
+
+# loaded libraries by build key; a process loads each .so once
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _dout(cfg: Config) -> int:
+    return 6 + 2 * cfg.cl            # dv(2) + dl(cl) + raw std(4 + cl)
+
+
+def _dout_padded(cfg: Config) -> int:
+    return (_dout(cfg) + 63) // 64 * 64
+
+
+def param_layout(cfg: Config) -> List[Tuple[str, Tuple[int, ...]]]:
+    """(name, shape) of each segment of the packed buffer, in order.
+
+    Matches the OFF_* constants of csrc/rollout.cu.  Weights are (in, out):
+    the kernel reads W[k, n0:n0+4] as one float4.
+    """
+    D, h, dp = cfg.full_state_dim, cfg.dyn_hidden, _dout_padded(cfg)
+    return [
+        ("w_e0", (D, h)), ("b_e0", (h,)),
+        ("w_e1", (h, h)), ("b_e1", (h,)),
+        ("w_s0", (h, h)), ("b_s0", (h,)),
+        ("w_s1", (h, h)), ("b_s1", (h,)),
+        ("w_rs", (h, 2 * h)), ("b_r0", (h,)),
+        ("w_r1", (h, h)), ("b_r1", (h,)),
+        ("w_rf", (h, h)), ("b_rf", (h,)),
+        ("w_ra", (h,)), ("b_ra", (4,)),
+        ("w_o0", (2 * h, h)), ("b_o0", (h,)),
+        ("w_o1", (h, h)), ("b_o1", (h,)),
+        ("w_o2", (h, dp)), ("b_o2", (dp,)),
+    ]
+
+
+def check_supported(cfg: Config, params: Dict) -> None:
+    """Raise for configurations the kernel does not implement."""
+    if cfg.dyn_layers != 2:
+        raise ValueError(f"fused rollout needs dyn_layers=2, got "
+                         f"{cfg.dyn_layers}")
+    if cfg.action_conditioned:
+        raise NotImplementedError(
+            "not ported yet: the action-conditioned rollout kernel "
+            "(pallas_rollout.rollout_act)")
+    if cfg.reward_head and "reward" in params:
+        raise NotImplementedError(
+            "not ported yet: the reward head inside the rollout kernel "
+            "(pallas_rollout.rollout_act)")
+    if cfg.open_loop_sigma and "open" in params:
+        raise NotImplementedError(
+            "not ported yet: the open-loop std head inside the rollout "
+            "kernel")
+    if cfg.dyn_hidden % 32 or _dout_padded(cfg) > cfg.dyn_hidden:
+        raise ValueError("fused rollout needs dyn_hidden a multiple of 32 "
+                         "and >= the padded output width")
+
+
+def prepare_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
+    """Pack the dynamics weights into the kernel's flat f32 buffer.
+
+    Counterpart of `pallas_rollout.prepare_params`: the first relational
+    layer is split into receiver (rows [0, h)) and sender (rows [h, 2h))
+    halves, laid side by side as one (h, 2h) matrix so both come out of one
+    matmul; the last relational layer into its h feature columns and its
+    attention column; output layer 0 into self and relational halves,
+    stacked along K to contract [s ; r] at once.  The last output layer is
+    zero-padded to a multiple of 64 columns.  The buffer lives on the
+    weights' device.
+    """
+    check_supported(cfg, dyn_params)
+    p = dyn_params
+    h = cfg.dyn_hidden
+    w_rel0, w_rel2, b_rel2 = p["rel"][0]["w"], p["rel"][2]["w"], p["rel"][2]["b"]
+    w_out0 = p["out"][0]["w"]
+    w_o0s, w_o0r = w_out0[:h], w_out0[h:]
+    dp = _dout_padded(cfg)
+    w_o2 = torch.zeros((h, dp), dtype=torch.float32, device=w_out0.device)
+    w_o2[:, :_dout(cfg)] = p["out"][2]["w"]
+    b_o2 = torch.zeros((dp,), dtype=torch.float32, device=w_out0.device)
+    b_o2[:_dout(cfg)] = p["out"][2]["b"]
+    b_ra = torch.zeros((4,), dtype=torch.float32, device=w_out0.device)
+    b_ra[0] = b_rel2[-1]
+    seg = {
+        "w_e0": p["embed"][0]["w"], "b_e0": p["embed"][0]["b"],
+        "w_e1": p["embed"][1]["w"], "b_e1": p["embed"][1]["b"],
+        "w_s0": p["self"][0]["w"], "b_s0": p["self"][0]["b"],
+        "w_s1": p["self"][1]["w"], "b_s1": p["self"][1]["b"],
+        "w_rs": torch.cat([w_rel0[:h], w_rel0[h:]], dim=1),
+        "b_r0": p["rel"][0]["b"],
+        "w_r1": p["rel"][1]["w"], "b_r1": p["rel"][1]["b"],
+        "w_rf": w_rel2[:, :-1], "b_rf": b_rel2[:-1],
+        "w_ra": w_rel2[:, -1], "b_ra": b_ra,
+        "w_o0": torch.cat([w_o0s, w_o0r], dim=0), "b_o0": p["out"][0]["b"],
+        "w_o1": p["out"][1]["w"], "b_o1": p["out"][1]["b"],
+        "w_o2": w_o2, "b_o2": b_o2,
+    }
+    parts = []
+    for name, shape in param_layout(cfg):
+        t = seg[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel "
+                             f"expects {shape}")
+        parts.append(t.reshape(-1).to(torch.float32))
+    return torch.cat(parts).contiguous()
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch version
+# --------------------------------------------------------------------------
+
+def rollout_states_reference(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
+                             horizon: int,
+                             noise: Optional[torch.Tensor] = None,
+                             actions: Optional[torch.Tensor] = None,
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """H steps of `dynamics.apply`, mean (noise None) or sampled.
+
+    noise: (B, H, O, D) standard normals; sampled steps inject
+    mean + (std_open · rollout_sigma_temp) · ε, as `stove.rollout` does.
+    actions: (B, H) or None.  Returns (states (B, H, O, D), rewards (B, H)).
+    """
+    zs, rs = [], []
+    z = z0
+    for t in range(horizon):
+        a = None if actions is None else actions[:, t]
+        dyn = dyn_lib.apply(dyn_params, cfg, z, a)
+        z = dyn.mean
+        if noise is not None:
+            z = z + (dyn.std_open * cfg.rollout_sigma_temp) * noise[:, t]
+        zs.append(z)
+        rs.append(dyn.reward)
+    B = z0.shape[0]
+    if not zs:
+        return (z0.new_zeros((B, 0) + tuple(z0.shape[1:])),
+                z0.new_zeros((B, 0)))
+    return torch.stack(zs, 1), torch.stack(rs, 1)
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel
+# --------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the rollout "
+                           "kernel is built from csrc/rollout.cu at first use")
+    return found
+
+
+def _defines(cfg: Config) -> List[str]:
+    return [f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
+            f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}"]
+
+
+def build(cfg: Config) -> Tuple[Path, str]:
+    """Compile csrc/rollout.cu for this config's shapes, if not yet built.
+
+    Returns (library path, nvcc's output: the -Xptxas -v register and
+    shared-memory report, empty when the library already existed).
+    """
+    defines = _defines(cfg)
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS + defines).encode()
+    ).hexdigest()[:16]
+    out = BUILD_DIR / f"rollout_{digest}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)          # atomic: a concurrent build sees all or nothing
+    return out, proc.stdout + proc.stderr
+
+
+def load(cfg: Config) -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library for `cfg`."""
+    path, _ = build(cfg)
+    key = str(path)
+    lib = _LIBS.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(key)
+        lib.stove_rollout_param_count.restype = ctypes.c_int
+        lib.stove_rollout_param_count.argtypes = []
+        lib.stove_rollout_smem_bytes.restype = ctypes.c_int
+        lib.stove_rollout_smem_bytes.argtypes = []
+        lib.stove_rollout_launch.restype = ctypes.c_int
+        lib.stove_rollout_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # z0, P, out
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, sample
+            ctypes.c_uint64,                                     # seed
+            ctypes.c_float, ctypes.c_float, ctypes.c_float,      # size_std, lo, hi
+            ctypes.c_float, ctypes.c_int,                        # temp, latent_residual
+            ctypes.c_void_p,                                     # stream
+        ]
+        expect = sum(math.prod(s) for _, s in param_layout(cfg))
+        if lib.stove_rollout_param_count() != expect:
+            raise RuntimeError(
+                f"kernel packs {lib.stove_rollout_param_count()} params, "
+                f"param_layout {expect}: csrc/rollout.cu and "
+                f"fused_rollout.param_layout disagree")
+        _LIBS[key] = lib
+    return lib
+
+
+def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
+                  horizon: int, sample: bool, seed: int) -> torch.Tensor:
+    """Check the inputs, allocate the output and launch the kernel once on
+    the current stream.  Takes CUDA tensors only.  `launch_kernel.launches`
+    counts the launches (a run sets it to 0 and reads it after)."""
+    if z0.device.type != "cuda" or prepared.device.type != "cuda":
+        raise ValueError("the rollout kernel takes CUDA tensors; got z0 on "
+                         f"{z0.device}, params on {prepared.device}")
+    if z0.dtype != torch.float32 or prepared.dtype != torch.float32:
+        raise TypeError("fused rollout takes float32 z0 and params")
+    B, O, D = z0.shape
+    if O != cfg.num_obj or D != cfg.full_state_dim:
+        raise ValueError(f"z0 shape {tuple(z0.shape)} does not match the "
+                         f"config (O={cfg.num_obj}, D={cfg.full_state_dim})")
+    if prepared.device != z0.device or prepared.dim() != 1:
+        raise ValueError("prepared params must be a flat buffer on z0's "
+                         "device (use prepare_params)")
+    if not (z0.is_contiguous() and prepared.is_contiguous()):
+        raise ValueError("fused rollout needs contiguous z0 and params")
+    if torch.cuda.get_device_capability(z0.device) != (9, 0):
+        raise RuntimeError("the rollout kernel is built for sm_90a (H100); "
+                           f"this card is {torch.cuda.get_device_name(z0.device)}")
+    if horizon <= 0 or B == 0:
+        return z0.new_empty((B, max(horizon, 0), O, D))
+    lib = load(cfg)
+    if prepared.numel() != lib.stove_rollout_param_count():
+        raise ValueError("prepared params have the wrong size for this "
+                         "config")
+    out = torch.empty((B, horizon, O, D), dtype=torch.float32,
+                      device=z0.device)
+    lo, hi = cfg.min_dyn_std, cfg.max_dyn_std
+    with torch.cuda.device(z0.device):
+        stream = torch.cuda.current_stream(z0.device).cuda_stream
+        err = lib.stove_rollout_launch(
+            z0.data_ptr(), prepared.data_ptr(), out.data_ptr(), B, horizon,
+            int(sample), seed, cfg.size_std, lo, hi, cfg.rollout_sigma_temp,
+            int(cfg.latent_residual), stream)
+    if err != 0:
+        raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
+    launch_kernel.launches += 1
+    return out
+
+
+launch_kernel.launches = 0
+
+
+def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
+            sample: bool = True, generator: Optional[torch.Generator] = None,
+            prepared: Optional[torch.Tensor] = None,
+            actions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one device dispatch of the rollout: (states, rewards).
+
+    z0: (B, O, 6+cl) f32 → states (B, horizon, O, 6+cl), rewards
+    (B, horizon).  On a CUDA tensor this launches the kernel (building it
+    at first use) and raises if it cannot: configurations it does not
+    implement (actions, reward or open-loop heads) raise in
+    `check_supported`, so its rewards are zeros.  `prepared` is
+    `prepare_params(dyn_params, cfg)` cached by the caller (computed here
+    when absent); the sampled kernel draws its noise in-kernel from a seed
+    taken from `generator`.  On a CPU tensor it runs
+    `rollout_states_reference` with `actions` and with standard normals
+    drawn from `generator`.
+    """
+    B = z0.shape[0]
+    if z0.device.type == "cuda":
+        check_supported(cfg, dyn_params)
+        if prepared is None:
+            prepared = prepare_params(dyn_params, cfg)
+        seed = 0
+        if sample:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                     device=generator.device
+                                     if generator is not None else "cpu"))
+        states = launch_kernel(prepared, cfg, z0, horizon, sample, seed)
+        return states, z0.new_zeros((B, horizon))
+    if z0.device.type != "cpu":
+        raise ValueError(f"fused rollout runs on cuda or cpu, not "
+                         f"{z0.device}")
+    noise = None
+    if sample:
+        noise = torch.randn((B, horizon) + tuple(z0.shape[1:]),
+                            generator=generator, dtype=z0.dtype)
+    return rollout_states_reference(dyn_params, cfg, z0, horizon, noise,
+                                    actions)
+
+
+def rollout_states(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
+                   horizon: int, sample: bool = True,
+                   generator: Optional[torch.Generator] = None,
+                   prepared: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Counterpart of `pallas_rollout.rollout_states`: the action-free
+    rollout's states (B, horizon, O, 6+cl), through `rollout`."""
+    return rollout(dyn_params, cfg, z0, horizon, sample, generator,
+                   prepared)[0]
