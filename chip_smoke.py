@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's CUDA kernel from the checkout, holds it against its plain
-PyTorch version on the card, runs `mode=eval` of the trained 3-ball
-billiards model (ckpts/r4rp_bill_s32, full width) through the port's entry
-point, and times the sampled rollout kernel.  One line per phase, with the
-seconds since start:
+Builds the port's four CUDA kernels from the checkout (one nvcc each, all
+at once), holds each against its plain PyTorch version on the card, runs
+`mode=eval` of the trained 3-ball billiards model (ckpts/r4rp_bill_s32,
+full width) and STOVE training at full width through the port's entry
+points, resumes the trained run through the kernels, and times the
+kernels and the training step.  One line per phase, with the seconds
+since start:
 
   (0) device      card name and power limit (nvidia-smi); TF32 off
-  (1) build       nvcc of stove_tpu_torch/csrc/rollout.cu, seconds
+  (1) build       nvcc of every kernel library: seconds, registers, smem
   (2) mean        kernel vs plain mean rollout, f32, trained weights, z0 from
                   the posterior of rendered frames: max |err| over steps 1-8
                   <= 1e-4 against the plain version in float32 and float64;
@@ -24,11 +26,35 @@ seconds since start:
                   drift apart, to 1e-2)
   (5) throughput  sampled kernel at B=16384, H=92 (then B=65536 if time
                   allows): warm-up + 10 runs timed with CUDA events
+  (6) spn         SPN kernel vs plain on one training step's object patches
+                  (6144, 100) and frames (2048, 1024), trained weights and
+                  region graphs: |err| <= 1e-5 * max(|log p|, 100)
+  (7) likelihood  likelihood kernel vs plain on 2048 rendered frames with
+                  posterior boxes, the same limit
+  (8) scan        scan kernel vs plain at B=256, T2=6, trained weights,
+                  pre-drawn eps: z, z_mean within 1e-4 of the float32 and
+                  float64 plain versions, kl within 2e-5 relative; the other
+                  two velocity_obs modes with random weights at B=64 (2e-4)
+  (9) train       from scratch at full width through the entry point: 2
+                  warm-up + 3 STOVE steps with the scan and likelihood
+                  kernels, then 1 + 1 with the SPN kernel; losses finite,
+                  launches > 0; one batch's gradients kernel vs plain path,
+                  leaf by leaf, within 1e-3 of each leaf's largest entry
+                  (mixture logits: 1e-6 absolute, their scale being 1)
+  (10) resume     restore=ckpts/r4rp_bill_s32 mode=train num_epochs=361
+                  through the kernels: 20 steps, mean elbo in [1197, 1248],
+                  kl in [-10.5, -7.5] (the JAX package's own float32 value
+                  on these weights, see there), overshoot < 0.02, nothing
+                  written under ckpts/
+  (11) timing     STOVE and warm-up step, kernel vs plain path (host clock,
+                  synchronised), and each kernel vs its plain version at the
+                  training shapes (CUDA events), beside its bound
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernel table (JSON), the card's name and power
 limit, and the result JSON.  Writes nothing into the repository but the
-git-ignored build directory.  Imports nothing of JAX or the JAX package.
+git-ignored build directory; runs write to a temporary directory.  Imports
+nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -112,19 +138,35 @@ def main() -> int:
           f"{torch.cuda.device_count()}; nvidia-smi: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}; TF32 off")
 
-    # ---- (1) build
+    # ---- (1) build: every kernel library of both slices, one nvcc each,
+    # all started together
+    from stove_tpu_torch.ops import _build
+    from stove_tpu_torch.ops import fused_likelihood as flik
+    from stove_tpu_torch.ops import fused_scan as fscan
+    from stove_tpu_torch.ops import fused_spn as fspn
     cfg = ckpt_lib.load_config(RUN)
+    model = StoveModel.from_run(RUN, device=dev)
+    sspecs = model.specs.supair
+    jobs = [fr.job(cfg), fscan.job(cfg),
+            fscan.job(cfg.with_overrides(velocity_obs_full_std=False)),
+            fscan.job(cfg.with_overrides(velocity_obs="filtered")),
+            fspn.job(sspecs.obj), fspn.job(sspecs.bg),
+            flik.job(cfg, sspecs)]
     t = time.perf_counter()
-    path, log = fr.build(cfg)
+    paths = _build.build(jobs)
+    phase("build", f"{len(jobs)} libraries in {time.perf_counter() - t:.1f} s")
+    for (src, defines), path in zip(jobs, paths):
+        secs = _build.BUILDS.get(str(path), (0.0, ""))[0]
+        phase("build", f"{src} {' '.join(defines)}: nvcc {secs:.1f} s; "
+              f"{_build.ptxas_report(path) or 'already built'}")
     lib = fr.load(cfg)
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", f"nvcc + load {time.perf_counter() - t:.1f} s -> {path.name}; "
-          f"smem {lib.stove_rollout_smem_bytes()} B/block; "
-          f"{' | '.join(ptxas) or 'already built'}")
+    phase("build", f"smem per block: rollout {lib.stove_rollout_smem_bytes()} "
+          f"B, scan {fscan.load(cfg).stove_scan_smem_bytes()} B, spn obj "
+          f"{fspn.load(sspecs.obj).stove_spn_smem_bytes()} B / bg "
+          f"{fspn.load(sspecs.bg).stove_spn_smem_bytes()} B, likelihood "
+          f"{flik.load(cfg, sspecs).stove_lik_smem_bytes()} B")
 
     # ---- (2) mean path, z0 from the posterior of rendered frames
-    model = StoveModel.from_run(RUN, device=dev)
     dyn = model.params["dynamics"]
     gen = torch.Generator().manual_seed(0)
     pcfg = cfg.with_overrides(seq_len=cfg.window)
@@ -302,7 +344,8 @@ def main() -> int:
           f"bf16 tensor-core bound {flops / 989e12 * 1e3:.3f} ms; kernel at "
           f"{flops / (times[B] * 1e-3) / 1e12:.2f} TFLOP/s")
 
-    print(json.dumps({"kernels": [{
+
+    rollout_entry = {
         "name": "rollout_states", "route": "cuda",
         "source": "stove_tpu_torch/csrc/rollout.cu",
         "replaces": "stove_tpu/ops/pallas_rollout.py:433",
@@ -310,12 +353,509 @@ def main() -> int:
         "ms": times[B], "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations", "library_ms": None,
         "shape": {"B": B, "H": 92, "sample": True},
-        "ms_b65536": times.get(65536)}]}))
+        "ms_b65536": times.get(65536)}
+
+    tr = training_slice(card, dev, cfg, model)
+    n = tr["launches"]
+    kernels = [rollout_entry]
+    for name, src, rep, key, err, launch, shape in (
+            ("scan_fused", "stove_tpu_torch/csrc/scan.cu",
+             "stove_tpu/ops/pallas_scan.py:214", "scan", tr["scan_err"],
+             n["scan"], {"B": 256, "T2": 6}),
+            ("spn_log_prob_fused", "stove_tpu_torch/csrc/spn.cu",
+             "stove_tpu/ops/pallas_spn.py:204", "spn", tr["spn_err"],
+             n["spn"], {"obj": [6144, 100], "bg": [2048, 1024]}),
+            ("likelihood_fused", "stove_tpu_torch/csrc/likelihood.cu",
+             "stove_tpu/ops/pallas_likelihood.py:233", "likelihood",
+             tr["lik_err"], n["likelihood"], {"frames": 2048, "objects": 3})):
+        ms, by = tr[{"scan": "scan_bound", "spn": "spn_bound",
+                     "likelihood": "lik_bound"}[key]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launch, "max_abs_err": err, "ms": tr[key + "_ms"],
+            "plain_ms": tr[key + "_plain_ms"], "bound_ms": ms,
+            "bound_by": by, "library_ms": None, "shape": shape})
+    print(json.dumps({"kernels": kernels, "train_step_ms": {
+        k: tr[f"step_{k}"] for k in ("kernels", "plain")},
+        "resume": tr["resume"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# the training slice: SPN, likelihood and scan kernels, training, resume
+# ---------------------------------------------------------------------------
+
+F32_PEAK, HBM_RATE = 67e12, 3.35e12        # H100 SXM, f32 CUDA cores, HBM3
+
+
+def bound(flops: float, nbytes: float):
+    """(ms, "operations" | "bytes"): the least time for the work."""
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def spn_flops(spec) -> float:
+    """Operations of one sample's SPN as the kernel does them: 8 per leaf
+    term (sub, div, mul, add, mul, sub, mul, add); per level and (r, p):
+    2(c-1) max, 2c sub+exp, then per sum node c(2c) multiply-adds and c
+    more, log and add; root: 4 per term."""
+    R, V, I, S, D = (spec.num_reps, spec.num_vars, spec.num_leaves,
+                     spec.num_sums, spec.depth)
+    ops, c = 8.0 * R * V * I, I
+    for d in range(D - 1, -1, -1):
+        ops += R * 2 ** d * (2 * (c - 1) + 4 * c + S * (2 * c * c + 2 * c + 2))
+        c = S
+    return ops + 4.0 * R * S
+
+
+def spn_param_bytes(spec) -> float:
+    """mu, sd, log sd (R, V, I), the mixture weights and the root."""
+    R, V, I, S, D = (spec.num_reps, spec.num_vars, spec.num_leaves,
+                     spec.num_sums, spec.depth)
+    n, c = 3 * R * V * I + R * S, I
+    for d in range(D - 1, -1, -1):
+        n += R * 2 ** d * S * c * c
+        c = S
+    return 4.0 * n
+
+
+def lik_flops(cfg, specs) -> float:
+    """Operations per frame: background weights (O edge pairs of ~12 ops
+    and a max per pixel), per object P² bilinear samples (~20 ops) and
+    claim weights (o edge pairs), the object SPN O times and the
+    background SPN once."""
+    O, P, V = cfg.num_obj, cfg.patch_size, cfg.img_size ** 2
+    claims = sum(o for o in range(O)) * P * P * 26.0
+    return (V * O * 26.0 + O * P * P * 20.0 + claims
+            + O * spn_flops(specs.obj) + spn_flops(specs.bg))
+
+
+def profile_step(trainer, batch_size: int, top: int = 12):
+    """torch.profiler over one STOVE step: device time by kernel name, the
+    device's busy time against the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from stove_tpu_torch.envs import data as data_lib
+
+    b = data_lib.sample_windows(trainer.train_ep, trainer.cfg,
+                                trainer.data_gen, batch_size)
+    trainer.train_step(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]      # kernels, not aten ops
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    out = [f"profile of one kernel-path STOVE step: wall {wall:.1f} ms, "
+           f"device busy {busy:.1f} ms ({100 * busy / wall:.0f}%), "
+           f"{len(rows)} kernel names"]
+    for e in rows[:top]:
+        out.append(f"  {e.self_device_time_total / 1e3:8.3f} ms "
+                   f"x{e.count:<4d} {e.key[:90]}")
+    return out
+
+
+def rel_err(got, ref, floor: float) -> float:
+    """max |got - ref| / max(|ref|, floor) over the elements."""
+    return ((got.double() - ref.double()).abs()
+            / ref.double().abs().clamp_min(floor)).max().item()
+
+
+def training_slice(card: str, dev, cfg, model) -> dict:
+    import os
+    import tempfile
+
+    import torch
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch import tree
+    from stove_tpu_torch.envs import data as data_lib
+    from stove_tpu_torch.models import dynamics as dyn_lib
+    from stove_tpu_torch.models import spn as spn_lib
+    from stove_tpu_torch.models import stove as stove_lib
+    from stove_tpu_torch.models import supair as sup_lib
+    from stove_tpu_torch.ops import fused_likelihood as flik
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.ops import fused_scan as fscan
+    from stove_tpu_torch.ops import fused_spn as fspn
+    from stove_tpu_torch.ops import glimpse
+    from stove_tpu_torch.train import checkpoint as ckpt_lib
+    from stove_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    specs = model.specs.supair
+    sparams = model.params["supair"]
+    B, T = cfg.batch_size, cfg.window                          # 256, 8
+    gen = torch.Generator().manual_seed(6)
+    ep = data_lib.generate(cfg.with_overrides(seq_len=T), B, gen, dev)
+    frames = data_lib.normalize_frames(ep.frames)               # (B, T, H, W)
+    flat = frames.reshape(B * T, cfg.img_size, cfg.img_size).contiguous()
+    with torch.no_grad():
+        inf = model.infer(frames, None, generator=gen)
+    boxes = torch.cat([inf.z[..., 0:2], inf.z[..., 2:4]], -1).reshape(
+        B * T, cfg.num_obj, 4).contiguous()
+
+    # ---- (6) spn: the kernel vs the plain version on the patches and
+    # frames of one training step.  Each log-density is a sum of 10^2-10^3
+    # leaf terms of size ~1, so float32 rounding scales with that sum: the
+    # limit is |err| <= 1e-5 * max(|log p|, 100).
+    with torch.no_grad():
+        patches = glimpse.extract_glimpses(flat, boxes, cfg.patch_size)
+        pw, bgv = flik.patch_weights(cfg, boxes)
+        P2 = cfg.patch_size ** 2
+        spn_in = {
+            "obj": (specs.obj, sparams["obj_spn"],
+                    patches.reshape(-1, P2).contiguous(),
+                    pw.reshape(-1, P2).contiguous()),
+            "bg": (specs.bg, sparams["bg_spn"],
+                   flat.reshape(B * T, -1).contiguous(),
+                   bgv.reshape(B * T, -1).contiguous())}
+        spn_err = 0.0
+        for name, (spec, prm, x, w) in spn_in.items():
+            got = fspn.launch_kernel(spec, fspn.prepare(spec, prm), x, w)
+            ref = spn_lib.spn_log_prob(spec, prm, x, w)
+            ref64 = spn_lib.spn_log_prob(
+                spec, {k: v.double() for k, v in prm.items()}, x.double(),
+                w.double())
+            torch.cuda.synchronize()
+            e32, e64 = rel_err(got, ref, 100.0), rel_err(got, ref64, 100.0)
+            spn_err = max(spn_err, (got - ref).abs().max().item())
+            phase("spn", f"{name} SPN x {tuple(x.shape)}: max |kernel - "
+                  f"plain| {(got - ref).abs().max().item():.3e} (rel "
+                  f"{e32:.2e}), vs float64 plain rel {e64:.2e}, float32 "
+                  f"plain vs float64 rel {rel_err(ref, ref64, 100.0):.2e}; "
+                  f"log p in [{ref.min().item():.1f}, {ref.max().item():.1f}]")
+            check(e32 <= 1e-5 and e64 <= 1e-5, f"{name} SPN kernel error")
+    out["spn_err"] = spn_err
+
+    # ---- (7) likelihood: the kernel vs the plain version on 2048 rendered
+    # frames with their posterior boxes; limit as in (6)
+    with torch.no_grad():
+        got = flik.launch_kernel(cfg, specs,
+                                 fspn.prepare(specs.obj, sparams["obj_spn"]),
+                                 fspn.prepare(specs.bg, sparams["bg_spn"]),
+                                 flat, boxes)
+        ref = flik.likelihood_reference(cfg, specs, sparams, flat, boxes)
+        torch.cuda.synchronize()
+        e32 = rel_err(got, ref, 100.0)
+        out["lik_err"] = (got - ref).abs().max().item()
+        phase("likelihood", f"{B * T} frames: max |kernel - plain| "
+              f"{out['lik_err']:.3e} (rel {e32:.2e}); log p in "
+              f"[{ref.min().item():.1f}, {ref.max().item():.1f}]")
+        check(e32 <= 1e-5, "likelihood kernel error")
+
+    # ---- (8) scan: the kernel vs the plain version at B=256, T2=6 on the
+    # trained weights with pre-drawn eps.  Two float32 evaluations that sum
+    # in different orders drift apart as the map amplifies rounding step by
+    # step (phase (2): 8e-5 after 8 rollout steps); the limit on z and
+    # z_mean is 1e-4 against the plain version in float32 and in float64.
+    # The random-weight modes (a nonzero output layer, B=64) amplify faster
+    # at steps 5-6 than the trained map (~2.5x a step, the by-step line):
+    # 2e-4 there.  kl (a sum of ~800 log densities) to 2e-5 relative.
+    with torch.no_grad():
+        mean, std = sup_lib.encode(sparams, cfg, flat)
+        mean = mean.reshape(B, T, cfg.num_obj, 4)
+        std = std.reshape(B, T, cfg.num_obj, 4)
+        m1, s1 = stove_lib.align_slots(mean[:, 0, :, 2:4], mean[:, 1, :, 2:4],
+                                       mean[:, 1], std[:, 1])
+        scan_args = [inf.z[:, 1].contiguous(), m1[..., 2:4].contiguous(),
+                     s1[..., 2:4].contiguous(), mean[:, 2:].contiguous(),
+                     std[:, 2:].contiguous()]
+        eps = torch.randn((B, T - 2, cfg.num_obj, cfg.full_state_dim),
+                          generator=gen).to(dev)
+        acts = torch.zeros((B, T - 2), dtype=torch.long, device=dev)
+        worst = {}
+        for label, c2, dyn, nb, lim in (
+                ("trained, velocity_obs_full_std", cfg,
+                 model.params["dynamics"], B, 1e-4),
+                ("random, velocity_obs_full_std=False",
+                 cfg.with_overrides(velocity_obs_full_std=False), None, 64,
+                 2e-4),
+                ("random, velocity_obs=filtered",
+                 cfg.with_overrides(velocity_obs="filtered"), None, 64,
+                 2e-4)):
+            if dyn is None:
+                dyn = dyn_lib.init_params(c2, torch.Generator().manual_seed(8),
+                                          dev)
+                dyn["out"][-1]["w"] = 0.05 * torch.randn(
+                    dyn["out"][-1]["w"].shape,
+                    generator=torch.Generator().manual_seed(9)).to(dev)
+            args = [a[:nb] for a in scan_args]
+            z, zm, kl = fscan.launch_kernel(fr.pack_params(dyn, c2), c2,
+                                            *args, eps[:nb])
+            rz, rzm, rkl, _ = fscan.scan_reference(dyn, c2, *args, acts[:nb],
+                                                   eps[:nb])
+            d64 = ckpt_lib.params_from_numpy(dyn, dev, torch.float64)
+            qz, qzm, qkl, _ = fscan.scan_reference(
+                d64, c2, *[a.double() for a in args], acts[:nb],
+                eps[:nb].double())
+            torch.cuda.synchronize()
+            ez = max((z - rz).abs().max().item(), (zm - rzm).abs().max().item())
+            ez64 = max((z.double() - qz).abs().max().item(),
+                       (zm.double() - qzm).abs().max().item())
+            own64 = max((rz.double() - qz).abs().max().item(),
+                        (rzm.double() - qzm).abs().max().item())
+            ekl = ((kl - rkl).abs() / rkl.abs().clamp_min(1.0)).max().item()
+            by_step = (z - rz).abs().amax(dim=(0, 2, 3))
+            phase("scan", f"{label}, B={nb}: max |kernel - plain| z, z_mean "
+                  f"{ez:.3e} (float64 plain: kernel {ez64:.3e}, float32 "
+                  f"plain {own64:.3e}); kl rel {ekl:.2e} (kl mean "
+                  f"{rkl.mean().item():.3f}); by step " + " ".join(
+                      f"{e:.1e}" for e in by_step.tolist()))
+            check(ez <= lim and ez64 <= lim, f"scan kernel z error ({label})")
+            check(ekl <= 2e-5, f"scan kernel kl error ({label})")
+            worst[label] = ez
+    out["scan_err"] = worst["trained, velocity_obs_full_std"]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+
+    def counts():
+        return (fscan.launch_kernel.launches, flik.launch_kernel.launches,
+                fspn.launch_kernel.launches, fr.launch_kernel.launches)
+
+    def zero():
+        for k in (fscan, flik, fspn, fr):
+            k.launch_kernel.launches = 0
+
+    # ---- (9) train from scratch at full width through the entry point:
+    # 2 warm-up and 3 STOVE steps with the scan and likelihood kernels (and
+    # one evaluation, which rolls out through the rollout kernel), then one
+    # warm-up and one STOVE step with the SPN kernel and the plain
+    # likelihood; every loss finite, every kernel launched
+    common = ["preset=stove_billiards", "num_train=64", "num_test=32",
+              "steps_per_epoch=1", f"run_dir={tmp}"]
+    zero()
+    t = time.perf_counter()
+    cfg_a, _, dev_a = entry.build_config(
+        common + ["scan_impl=pallas", "likelihood_impl=pallas",
+                  "num_epochs=5", "supair_only_epochs=2", "eval_every=5",
+                  "run_name=scratch_kernels"])
+    tr_a, res_a = entry.run_train(cfg_a, dev_a)
+    torch.cuda.synchronize()
+    n_scan, n_lik, n_spn, n_roll = counts()
+    phase("train", f"from scratch, scan+likelihood kernels: 5 epochs of 1 "
+          f"step in {time.perf_counter() - t:.1f} s; launches scan {n_scan}, "
+          f"likelihood {n_lik}, spn {n_spn}, rollout {n_roll}; last "
+          f"loss {res_a['loss']:.2f} elbo {res_a['elbo']:.2f} mse_final "
+          f"{res_a['mse_final']:.4f}")
+    check(n_scan > 0 and n_lik > 0, "training launched scan and likelihood")
+    rows = [json.loads(ln) for ln in open(
+        os.path.join(tr_a.run_dir, "metrics.jsonl"))]
+    losses = [r["loss"] for r in rows if r["kind"] == "train"]
+    check(len(losses) == 5 and all(math.isfinite(x) for x in losses),
+          f"finite losses {losses}")
+    zero()
+    cfg_b, _, dev_b = entry.build_config(
+        common + ["spn_impl=pallas", "likelihood_impl=xla", "num_epochs=2",
+                  "supair_only_epochs=1", "eval_every=100",
+                  "run_name=scratch_spn"])
+    _, res_b = entry.run_train(cfg_b, dev_b)
+    torch.cuda.synchronize()
+    n_spn_b = counts()[2]
+    phase("train", f"spn kernel path: 1 warm-up + 1 STOVE step, spn "
+          f"launches {n_spn_b}, last loss {res_b['loss']:.2f}")
+    check(n_spn_b > 0 and math.isfinite(res_b["loss"]), "spn path ran")
+    out["launches"] = {"scan": n_scan, "likelihood": n_lik, "spn": n_spn_b}
+
+    # one batch, the same noise: kernel-path gradients vs plain-path ones.
+    # The backward is the plain version's VJP at the kernel forward's
+    # inputs, which differ from the plain forward's by ~1e-5 (phase 8).
+    # The gradient of a bilinear glimpse jumps where a sample point crosses
+    # a pixel centre, so the few samples that cross between the two
+    # forwards change the box gradients, and through them the dynamics',
+    # in steps (3.2e-4 of a leaf's largest entry in one run, 2e-6 in
+    # another): each leaf is held to 1e-3 of its largest entry.  A mixture
+    # logit's gradient is a mean over the B*T frames of (responsibility -
+    # weight), in [-1, 1] whatever its size (saturated mixtures give
+    # ~1e-8), so the sum and root logits are held to 1e-6 of that scale.
+    tr = tr_a
+    batch = data_lib.sample_windows(tr.train_ep, cfg_a,
+                                    torch.Generator(device=dev).manual_seed(3),
+                                    cfg_a.batch_size)
+    noise = stove_lib.draw_elbo_noise(cfg_a, B, T,
+                                      torch.Generator().manual_seed(4), dev)
+    leaves = tree.leaves(tr.params)
+
+    def grads(c):
+        loss = stove_lib.elbo(tr.params, c, tr.model.specs, batch["frames"],
+                              None, None, noise).loss
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    plain_cfg = cfg_a.with_overrides(scan_impl="xla", likelihood_impl="xla")
+    g_k = grads(cfg_a)
+    g_p = grads(plain_cfg)
+    g_p2 = grads(plain_cfg)
+    g_s = grads(plain_cfg.with_overrides(spn_impl="pallas"))
+    rows_g = []
+    for (path, _), a, b, b2, s in zip(tree.paths(tr.params), g_k, g_p, g_p2,
+                                      g_s):
+        if b is None:
+            check(a is None and s is None, f"gradient presence {path}")
+            continue
+        scale = (1.0 if "logits" in str(path[-1])
+                 else b.abs().max().item() or 1.0)
+        lim = 1e-6 if "logits" in str(path[-1]) else 1e-3
+        rows_g.append(((a - b).abs().max().item() / scale / lim,
+                       (s - b).abs().max().item() / scale / lim,
+                       (b2 - b).abs().max().item() / scale, scale,
+                       tree.keystr(path)))
+    rows_g.sort(reverse=True)
+    for r in rows_g[:4]:
+        phase("train", f"gradient {r[4]}: max |kernel - plain| / scale "
+              f"{r[0]:.2e} of its limit (spn kernel {r[1]:.2e}; plain run "
+              f"twice {r[2]:.2e} of scale); scale {r[3]:.3e}")
+    worst_g = max(r[0] for r in rows_g)
+    worst_s = max(r[1] for r in rows_g)
+    phase("train", f"gradients on one batch, same noise, {len(rows_g)} "
+          f"leaves: worst share of the limit, scan+likelihood kernels "
+          f"{worst_g:.2e}, spn kernel {worst_s:.2e}")
+    check(worst_g <= 1.0 and worst_s <= 1.0, "kernel-path gradients")
+
+    # ---- (10) resume the trained run through the kernels for one epoch of
+    # 20 steps.  elbo: the committed run's last 40 logged steps
+    # (metrics.jsonl) have mean 1222.5, so [1197, 1248] is +-2%.  kl: that
+    # log has -6.26 to -5.70, but the JAX package itself, in float32 on the
+    # restored weights and its own training corpus, gives about -9.1
+    # (tests/test_torch_resume.py measures it), so kl is held to
+    # [-10.5, -7.5] around the reference's own value; overshoot < 0.02.
+    before = {p: os.path.getmtime(p) for p in
+              [os.path.join(RUN, f) for f in os.listdir(RUN)]}
+    zero()
+    t = time.perf_counter()
+    cfg_r, _, dev_r = entry.build_config(
+        [f"restore={RUN}", "mode=train", "scan_impl=pallas",
+         "likelihood_impl=pallas", "num_epochs=361", f"run_dir={tmp}"])
+    tr_r, _ = entry.run_train(cfg_r, dev_r)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    steps = [{k: float(v) for k, v in m.items()} for m in tr_r.epoch_metrics]
+    mean = {k: sum(s[k] for s in steps) / len(steps)
+            for k in ("elbo", "kl", "overshoot", "log_lik")}
+    n_scan_r, n_lik_r = counts()[:2]
+    phase("resume", f"{RUN} step 7200 -> {tr_r.step} in {resume_s:.1f} s, "
+          f"{len(steps)} steps: mean elbo {mean['elbo']:.2f} (min "
+          f"{min(s['elbo'] for s in steps):.2f}, max "
+          f"{max(s['elbo'] for s in steps):.2f}), log_lik "
+          f"{mean['log_lik']:.2f}, kl {mean['kl']:.3f}, overshoot "
+          f"{mean['overshoot']:.5f}; launches scan {n_scan_r}, likelihood "
+          f"{n_lik_r}; wrote {tr_r.run_dir}; elbo by step "
+          + " ".join(f"{s['elbo']:.1f}" for s in steps))
+    check(len(steps) == 20, "20 resumed steps")
+    check(1197.0 <= mean["elbo"] <= 1248.0, f"resume elbo {mean['elbo']}")
+    check(-10.5 <= mean["kl"] <= -7.5, f"resume kl {mean['kl']}")
+    check(max(s["overshoot"] for s in steps) < 0.02, "resume overshoot")
+    check(n_scan_r > 0 and n_lik_r > 0, "resume launched the kernels")
+    after = {p: os.path.getmtime(p) for p in
+             [os.path.join(RUN, f) for f in os.listdir(RUN)]}
+    check(after == before, f"nothing written under {RUN}")
+    out["resume"] = mean
+
+    # ---- (11) timing at the training shapes (B=256 windows of 8 frames)
+    def step_ms(trainer, fn, n=5):
+        b = data_lib.sample_windows(trainer.train_ep, trainer.cfg,
+                                    trainer.data_gen, B)
+        fn(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def fwd_ms(trainer, n=5):
+        b = data_lib.sample_windows(trainer.train_ep, trainer.cfg,
+                                    trainer.data_gen, B)
+        nz = stove_lib.draw_elbo_noise(trainer.cfg, B, T, trainer.noise_gen,
+                                       dev)
+        with torch.no_grad():
+            trainer.model.elbo(trainer.params, b["frames"], None, None, nz)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                trainer.model.elbo(trainer.params, b["frames"], None, None, nz)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    timing = {}
+    trainers = {}
+    for label, kw in (("kernels", ["scan_impl=pallas", "likelihood_impl=pallas"]),
+                      ("plain", [])):
+        c, _, d = entry.build_config(common + kw + ["nolog=true"])
+        trainers[label] = Trainer(c, device=d)
+    for label in ("plain", "kernels", "kernels", "plain"):
+        trn = trainers[label]
+        timing.setdefault(label, []).append(
+            (step_ms(trn, trn.train_step), step_ms(trn, trn.supair_step),
+             fwd_ms(trn)))
+    # where the time of one kernel-path STOVE step goes, by CUDA kernel
+    prof_lines = profile_step(trainers["kernels"], B)
+    for ln in prof_lines:
+        phase("timing", ln)
+    for label, runs in timing.items():
+        st = min(r[0] for r in runs)
+        wu = min(r[1] for r in runs)
+        fw = min(r[2] for r in runs)
+        phase("timing", f"{label} path: STOVE step {st:.1f} ms, warm-up step "
+              f"{wu:.1f} ms, ELBO forward alone {fw:.1f} ms (so backward + "
+              f"update {st - fw:.1f} ms, {100 * (st - fw) / st:.0f}% of the "
+              f"step); runs {[tuple(round(x, 1) for x in r) for r in runs]} "
+              f"on {card}")
+        out[f"step_{label}"] = (st, wu, fw)
+
+    # each kernel alone at the training shapes vs its plain version
+    with torch.no_grad():
+        packed = fr.pack_params(model.params["dynamics"], cfg)
+        prep_o = fspn.prepare(specs.obj, sparams["obj_spn"])
+        prep_b = fspn.prepare(specs.bg, sparams["bg_spn"])
+        (so, po, xo, wo), (sb, pb, xb, wb) = spn_in["obj"], spn_in["bg"]
+        kern = {
+            "spn": (lambda: (fspn.launch_kernel(so, prep_o, xo, wo),
+                             fspn.launch_kernel(sb, prep_b, xb, wb)),
+                    lambda: (spn_lib.spn_log_prob(so, po, xo, wo),
+                             spn_lib.spn_log_prob(sb, pb, xb, wb))),
+            "likelihood": (lambda: flik.launch_kernel(cfg, specs, prep_o,
+                                                      prep_b, flat, boxes),
+                           lambda: flik.likelihood_reference(
+                               cfg, specs, sparams, flat, boxes)),
+            "scan": (lambda: fscan.launch_kernel(packed, cfg, *scan_args,
+                                                 eps),
+                lambda: fscan.scan_reference(model.params["dynamics"], cfg,
+                                             *scan_args, acts, eps)),
+        }
+        for name, (k_fn, p_fn) in kern.items():
+            out[f"{name}_ms"] = time_cuda(k_fn, iters=20, warmup=2)
+            out[f"{name}_plain_ms"] = time_cuda(p_fn, iters=5, warmup=1)
+    macs = macs_per_frame(cfg) * B * (T - 2)
+    scan_bytes = 4.0 * (sum(a.numel() for a in scan_args) + eps.numel()
+                        + 2 * eps.numel() + B
+                        + packed.numel())
+    out["scan_bound"] = bound(2.0 * macs, scan_bytes)
+    n_obj, n_bg = xo.shape[0], xb.shape[0]
+    out["spn_bound"] = bound(
+        n_obj * spn_flops(so) + n_bg * spn_flops(sb),
+        4.0 * (2 * xo.numel() + 2 * xb.numel() + n_obj + n_bg)
+        + spn_param_bytes(so) + spn_param_bytes(sb))
+    out["lik_bound"] = bound(
+        flat.shape[0] * lik_flops(cfg, specs),
+        4.0 * (flat.numel() + boxes.numel() + flat.shape[0])
+        + spn_param_bytes(so) + spn_param_bytes(sb))
+    for name, key in (("spn", "spn_bound"), ("likelihood", "lik_bound"),
+                      ("scan", "scan_bound")):
+        ms, by = out[key]
+        phase("timing", f"{name} kernel {out[name + '_ms']:.3f} ms, plain "
+              f"{out[name + '_plain_ms']:.3f} ms, bound {ms:.4f} ms "
+              f"({by}) on {card}")
+    return out
 
 
 if __name__ == "__main__":

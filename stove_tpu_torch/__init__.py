@@ -3,12 +3,14 @@
 The layout mirrors the JAX package module for module, so each counterpart
 is found under the same name:
 
-  envs/      billiards physics + in-memory test-corpus generation
-  models/    encoder, SuPAIR box encoding, graph-net dynamics, STOVE
-  ops/       Gaussian algebra, matching, the fused CUDA rollout kernel
-  train/     checkpoint bridge (reads the JAX npz files), evaluation
+  envs/      billiards physics, in-memory corpora, window batches
+  models/    encoder, SuPAIR (SPN likelihood), RAT-SPN, graph-net dynamics,
+             STOVE (inference, ELBO, rollout)
+  ops/       Gaussian algebra, glimpses, matching, the kernel wrappers
+             (rollout, posterior scan, SPN, likelihood) and their builder
+  train/     checkpoints in the JAX npz layout, trainer, metrics, evaluation
   csrc/      hand-written CUDA C++ kernels, built with nvcc at first use
-  main.py    `python -m stove_tpu_torch.main restore=<run> mode=eval`
+  main.py    `python -m stove_tpu_torch.main [mode=train|eval] ...`
 
 The port imports torch, numpy and the standard library only.  Parameters
 are plain nested dicts/lists of tensors with the JAX package's key names

@@ -43,204 +43,14 @@
 // stacked.  Noise: Philox4x32-10 keyed by a seed the wrapper draws from the
 // caller's torch.Generator, counter (chunk, step, sample, object), both
 // Box-Muller branches.
+//
+// The dynamics core (shapes, parameter layout, block-wide matmul, one
+// dynamics step, Euler integration) lives in dyn_core.cuh, shared with the
+// posterior scan kernel (scan.cu).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#ifndef STOVE_O
-#define STOVE_O 3
-#endif
-#ifndef STOVE_CL
-#define STOVE_CL 16
-#endif
-#ifndef STOVE_H
-#define STOVE_H 128
-#endif
-#ifndef STOVE_TB
-#define STOVE_TB 16
-#endif
+#include "dyn_core.cuh"
 
 namespace {
-
-constexpr int O = STOVE_O;          // objects
-constexpr int CL = STOVE_CL;        // latent width per object
-constexpr int HID = STOVE_H;        // graph-net width
-constexpr int TB = STOVE_TB;        // samples per block
-constexpr int NT = 256;             // threads per block
-constexpr int D = 6 + CL;           // state rows per object
-constexpr int DOUT = 6 + 2 * CL;    // dv(2) + dl(cl) + raw std(4 + cl)
-constexpr int DOUTP = (DOUT + 63) / 64 * 64;  // padded output width
-constexpr int NPAIR = O * (O - 1);
-constexpr int M = O * TB;           // (object, sample) rows
-constexpr int MP = NPAIR * TB;      // (pair, sample) rows
-constexpr int LDO = M + 4;          // padded leading dims (store conflicts)
-constexpr int LDP = MP + 4;
-
-static_assert(HID % 32 == 0 && M % 4 == 0, "widths must be multiples of 32 and 4");
-static_assert(DOUTP <= HID && D <= HID, "output rows must fit a hidden buffer");
-
-// ---- packed parameter layout (floats); the order and sizes match
-// stove_tpu_torch/ops/fused_rollout.py::param_layout exactly.
-constexpr int OFF_WE0 = 0;
-constexpr int OFF_BE0 = OFF_WE0 + D * HID;
-constexpr int OFF_WE1 = OFF_BE0 + HID;
-constexpr int OFF_BE1 = OFF_WE1 + HID * HID;
-constexpr int OFF_WS0 = OFF_BE1 + HID;
-constexpr int OFF_BS0 = OFF_WS0 + HID * HID;
-constexpr int OFF_WS1 = OFF_BS0 + HID;
-constexpr int OFF_BS1 = OFF_WS1 + HID * HID;
-constexpr int OFF_WRS = OFF_BS1 + HID;          // [W_recv | W_send] (h, 2h)
-constexpr int OFF_BR0 = OFF_WRS + HID * 2 * HID;
-constexpr int OFF_WR1 = OFF_BR0 + HID;
-constexpr int OFF_BR1 = OFF_WR1 + HID * HID;
-constexpr int OFF_WRF = OFF_BR1 + HID;          // rel features (h, h)
-constexpr int OFF_BRF = OFF_WRF + HID * HID;
-constexpr int OFF_WRA = OFF_BRF + HID;          // rel attention column (h)
-constexpr int OFF_BRA = OFF_WRA + HID;          // (4; one used)
-constexpr int OFF_WO0 = OFF_BRA + 4;            // [W_o0s ; W_o0r] (2h, h)
-constexpr int OFF_BO0 = OFF_WO0 + 2 * HID * HID;
-constexpr int OFF_WO1 = OFF_BO0 + HID;
-constexpr int OFF_BO1 = OFF_WO1 + HID * HID;
-constexpr int OFF_WO2 = OFF_BO1 + HID;          // (h, DOUTP), zero padded
-constexpr int OFF_BO2 = OFF_WO2 + HID * DOUTP;
-constexpr int N_PARAMS = OFF_BO2 + DOUTP;
-
-// ---- shared memory layout (floats)
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-constexpr int ZS_SIZE = D * LDO;                          // state
-constexpr int AE_SIZE = cmax(2 * HID * LDO, HID * LDP);   // two (h, M) or one (h, MP)
-constexpr int SR_SIZE = 2 * HID * LDO;                    // [s ; r]
-constexpr int P2_SIZE = cmax(2 * HID * LDO, HID * LDP);   // [recv ; send] or pair
-constexpr int LG_SIZE = (MP + 3) / 4 * 4;                 // pair attention
-constexpr int WS_FLOATS = 8192;                           // weight chunk (32 KB)
-constexpr int SMEM_FLOATS = ZS_SIZE + AE_SIZE + SR_SIZE + P2_SIZE + LG_SIZE + WS_FLOATS;
-constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_FLOATS;
-static_assert(SMEM_BYTES <= 232448, "shared memory above the 227 KB a block can use");
-
-// Rows per thread for an (Mrows x N) output: the smallest divisor of Mrows
-// that lets N/4 * Mrows/TM threads cover the tile with NT threads.
-__host__ __device__ constexpr int pick_tm(int mrows, int cg) {
-    int tm = (mrows * cg + NT - 1) / NT;
-    if (tm < 1) tm = 1;
-    while (mrows % tm) ++tm;
-    return tm;
-}
-
-// Y[n, m] = act(sum_k X[k, m] * W[k, n] + b[n]) for m < MR, n < N.
-// X, Y in shared memory, feature-major with leading dims ldx, ldy; W in
-// global memory (K, N) row-major ((in, out), as the checkpoint stores it).
-// W streams through the shared staging buffer WS in chunks of KC rows: the
-// block loads each weight once per step (the next chunk is in flight in
-// registers while the current one is used), instead of every warp
-// re-reading it through L1.  Every thread of the block must call this;
-// the caller synchronises before Y is read.
-template <int MR, int N, int K, bool RELU>
-__device__ __forceinline__ void gemm(const float* __restrict__ X, int ldx,
-                                     const float* __restrict__ W,
-                                     const float* __restrict__ bias,
-                                     float* __restrict__ Y, int ldy,
-                                     float* __restrict__ WS) {
-    constexpr int CG = N / 4;
-    static_assert(N % 32 == 0 && CG <= NT, "N must be a multiple of 32, <= 4*NT");
-    constexpr int TM = pick_tm(MR, CG);
-    constexpr int RG = MR / TM;
-    static_assert(RG * CG <= NT && RG % 4 == 0, "tile does not fit the block");
-    constexpr int KC = K * N <= WS_FLOATS ? K : WS_FLOATS / N;  // rows per chunk
-    static_assert(K % KC == 0, "K must be a multiple of the chunk rows");
-    constexpr int NCHUNK = K / KC;
-    constexpr int C4 = KC * N / 4;                  // float4 per chunk
-    constexpr int PF = (C4 + NT - 1) / NT;          // float4 per thread per chunk
-    // A warp covers 32 columns x 4 row groups (8 x 4 lanes): per k it reads
-    // 128 B of W (one shared-memory wavefront, broadcast across its row
-    // groups) and 4 distinct row slices of X.
-    const int tid = threadIdx.x;
-    const bool active = tid < RG * CG;
-    const int warp = tid / 32, lane = tid % 32;
-    const int n0 = (warp % (N / 32)) * 32 + (lane % 8) * 4;
-    const int m0 = ((warp / (N / 32)) * 4 + lane / 8) * TM;
-    const float4* W4 = reinterpret_cast<const float4*>(W);
-    float4* WS4 = reinterpret_cast<float4*>(WS);
-
-    float4 pre[PF];
-#pragma unroll
-    for (int q = 0; q < PF; ++q) {
-        const int i = tid + q * NT;
-        if (i < C4) pre[q] = __ldg(W4 + i);
-    }
-    float acc[TM][4];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    }
-    for (int c = 0; c < NCHUNK; ++c) {
-        __syncthreads();                    // WS is free: the last chunk is used
-#pragma unroll
-        for (int q = 0; q < PF; ++q) {
-            const int i = tid + q * NT;
-            if (i < C4) WS4[i] = pre[q];
-        }
-        __syncthreads();
-        if (c + 1 < NCHUNK) {
-#pragma unroll
-            for (int q = 0; q < PF; ++q) {
-                const int i = tid + q * NT;
-                if (i < C4) pre[q] = __ldg(W4 + (size_t)(c + 1) * C4 + i);
-            }
-        }
-        if (active) {
-            const float* xc = X + m0 + c * KC * ldx;
-#pragma unroll 8
-            for (int k = 0; k < KC; ++k) {
-                const float4 w = *reinterpret_cast<const float4*>(WS + k * N + n0);
-                float xv[TM];
-                const float* xk = xc + k * ldx;
-                if constexpr (TM % 4 == 0) {
-#pragma unroll
-                    for (int i = 0; i < TM; i += 4) {
-                        const float4 v = *reinterpret_cast<const float4*>(xk + i);
-                        xv[i] = v.x; xv[i + 1] = v.y; xv[i + 2] = v.z; xv[i + 3] = v.w;
-                    }
-                } else if constexpr (TM % 2 == 0) {
-#pragma unroll
-                    for (int i = 0; i < TM; i += 2) {
-                        const float2 v = *reinterpret_cast<const float2*>(xk + i);
-                        xv[i] = v.x; xv[i + 1] = v.y;
-                    }
-                } else {
-#pragma unroll
-                    for (int i = 0; i < TM; ++i) xv[i] = xk[i];
-                }
-#pragma unroll
-                for (int i = 0; i < TM; ++i) {
-                    acc[i][0] = fmaf(xv[i], w.x, acc[i][0]);
-                    acc[i][1] = fmaf(xv[i], w.y, acc[i][1]);
-                    acc[i][2] = fmaf(xv[i], w.z, acc[i][2]);
-                    acc[i][3] = fmaf(xv[i], w.w, acc[i][3]);
-                }
-            }
-        }
-    }
-    if (!active) return;
-    float bj[4] = {0.f, 0.f, 0.f, 0.f};
-    if (bias != nullptr) {
-        const float4 b = __ldg(reinterpret_cast<const float4*>(bias + n0));
-        bj[0] = b.x; bj[1] = b.y; bj[2] = b.z; bj[3] = b.w;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        float* yp = Y + (n0 + j) * ldy + m0;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-            float v = acc[i][j] + bj[j];
-            yp[i] = RELU ? fmaxf(v, 0.f) : v;
-        }
-    }
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-    return 1.f / (1.f + expf(-x));
-}
 
 // Philox4x32-10 (Salmon et al., SC'11): counter-based, so every
 // (chunk, step, sample, object) gets its own independent draw.
@@ -299,74 +109,8 @@ rollout_kernel(const float* __restrict__ z0, const float* __restrict__ P,
     __syncthreads();
 
     for (int t = 0; t < H; ++t) {
-        // embed MLP, self MLP (all objects' rows at once)
-        gemm<M, HID, D, true>(zs, LDO, P + OFF_WE0, P + OFF_BE0, AE, LDO, WS);
-        __syncthreads();
-        gemm<M, HID, HID, false>(AE, LDO, P + OFF_WE1, P + OFF_BE1, AEb, LDO, WS);   // e
-        __syncthreads();
-        gemm<M, HID, HID, true>(AEb, LDO, P + OFF_WS0, P + OFF_BS0, AE, LDO, WS);
-        __syncthreads();
-        gemm<M, HID, HID, false>(AE, LDO, P + OFF_WS1, P + OFF_BS1, SR, LDO, WS);    // s
-        // receiver and sender halves of the first relational layer
-        gemm<M, 2 * HID, HID, false>(AEb, LDO, P + OFF_WRS, nullptr, P2, LDO, WS);
-        __syncthreads();
-        // pair rows (o, j), j != o, o-major: relu(recv_o + send_j + b)
-        for (int i = tid; i < HID * MP; i += NT) {
-            const int k = i / MP, m = i % MP;
-            const int p = m / TB, b = m % TB;
-            const int o = p / (O - 1), jj = p % (O - 1);
-            const int j = jj < o ? jj : jj + 1;
-            const float v = P2[k * LDO + o * TB + b]
-                          + P2[(HID + k) * LDO + j * TB + b] + __ldg(P + OFF_BR0 + k);
-            AE[k * LDP + m] = fmaxf(v, 0.f);
-        }
-        __syncthreads();
-        gemm<MP, HID, HID, true>(AE, LDP, P + OFF_WR1, P + OFF_BR1, P2, LDP, WS);
-        __syncthreads();
-        gemm<MP, HID, HID, false>(P2, LDP, P + OFF_WRF, P + OFF_BRF, AE, LDP, WS);  // features
-        for (int m = tid; m < MP; m += NT) {                                     // attention
-            float a = 0.f;
-            for (int k = 0; k < HID; ++k) a = fmaf(P2[k * LDP + m], __ldg(P + OFF_WRA + k), a);
-            LG[m] = sigmoidf(a + __ldg(P + OFF_BRA));
-        }
-        __syncthreads();
-        // r_o = sum over senders j != o of feature * attention
-        for (int i = tid; i < HID * M; i += NT) {
-            const int k = i / M, m = i % M;
-            const int o = m / TB, b = m % TB;
-            float acc = 0.f;
-#pragma unroll
-            for (int jj = 0; jj < O - 1; ++jj) {
-                const int pm = (o * (O - 1) + jj) * TB + b;
-                acc += AE[k * LDP + pm] * LG[pm];
-            }
-            SR[(HID + k) * LDO + m] = acc;
-        }
-        __syncthreads();
-        // output MLP on [s ; r]
-        gemm<M, HID, 2 * HID, true>(SR, LDO, P + OFF_WO0, P + OFF_BO0, AE, LDO, WS);
-        __syncthreads();
-        gemm<M, HID, HID, true>(AE, LDO, P + OFF_WO1, P + OFF_BO1, AEb, LDO, WS);
-        __syncthreads();
-        gemm<M, DOUTP, HID, false>(AEb, LDO, P + OFF_WO2, P + OFF_BO2, AE, LDO, WS);
-        __syncthreads();
-        // Euler integration into AEb: v' = v + dv, p' = p + v', l' = l + dl
-        for (int i = tid; i < D * M; i += NT) {
-            const int d = i / M, m = i % M;
-            float v;
-            if (d < 2) {
-                v = zs[d * LDO + m];
-            } else if (d < 4) {
-                const float vel = zs[(d + 2) * LDO + m] + AE[(d - 2) * LDO + m];
-                v = zs[d * LDO + m] + vel;
-            } else if (d < 6) {
-                v = zs[d * LDO + m] + AE[(d - 4) * LDO + m];
-            } else {
-                const float dl = AE[(d - 4) * LDO + m];
-                v = latent_residual ? zs[d * LDO + m] + dl : dl;
-            }
-            AEb[d * LDO + m] = v;
-        }
+        dyn_forward(zs, P, AE, AEb, SR, P2, LG, WS);
+        integrate_mean(zs, AE, AEb, latent_residual);   // mean into AEb
         __syncthreads();
         if (sample) {
             // z = mean + temp * std * eps; std = size_std on the size rows,

@@ -1,16 +1,18 @@
-"""In-memory test-corpus generation (counterpart of
+"""In-memory corpora and window batches (counterpart of
 `stove_tpu/envs/data.py`, without storage).
 
 `generate` simulates and renders a batch of billiards sequences on the
 requested device and quantises the frames to uint8 like the JAX corpora.
-Nothing is written to disk: the eval corpus is made anew from a seed.
+Nothing is written to disk: the training and test corpora are made anew
+from a seed.  `sample_windows` draws a training batch of windows on the
+corpus's device.
 Ground-truth `states` per object are (x, y, vx, vy) in arena coordinates,
 recorded *before* each step (the reference layout).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -65,3 +67,22 @@ def arena_to_model(cfg: Config, pos: torch.Tensor) -> torch.Tensor:
 
 def model_to_arena(cfg: Config, pos: torch.Tensor) -> torch.Tensor:
     return (pos + 1.0) * (cfg.arena_size / 2.0)
+
+
+def sample_windows(ep: Episode, cfg: Config, generator: torch.Generator,
+                   batch: int) -> Dict[str, torch.Tensor]:
+    """`batch` random cfg.window-frame windows (data.py:219): a sequence
+    and a start offset per window, drawn from `generator`, which lives on
+    the corpus's device; frames normalised to float32 in [0, 1]."""
+    N, T = ep.frames.shape[:2]
+    W = cfg.window
+    dev = ep.frames.device
+    seq = torch.randint(0, N, (batch,), generator=generator, device=dev)
+    off = torch.randint(0, T - W + 1, (batch,), generator=generator,
+                        device=dev)
+    t_idx = off[:, None] + torch.arange(W, device=dev)[None, :]
+    s_idx = seq[:, None]
+    return dict(frames=normalize_frames(ep.frames[s_idx, t_idx]),
+                states=ep.states[s_idx, t_idx],
+                actions=ep.actions[s_idx, t_idx],
+                rewards=ep.rewards[s_idx, t_idx])

@@ -1,16 +1,20 @@
-"""Entry point: `python -m stove_tpu_torch.main restore=<run_dir> mode=eval`.
+"""Entry point: `python -m stove_tpu_torch.main [mode=train|eval] ...`.
 
 Counterpart of `stove_tpu/main.py` for the modes ported so far.  Tokens
-are `key=value`: `mode=` (only `eval` in this slice), `restore=` (a run
-directory written by the JAX trainer: its config.json and latest
-ckpt_*.npz), `preset=`, `device=` (`cuda`, the default, or `cpu`), and any
-Config field as an override.
+are `key=value`: `mode=` (`train`, the default, or `eval`), `restore=` (a
+run directory written by the JAX trainer or the port's: its config.json
+and latest ckpt_*.npz), `preset=`, `device=` (`cuda`, the default, or
+`cpu`), and any Config field as an override (`scan_impl=pallas`,
+`likelihood_impl=pallas`, `spn_impl=pallas` select the port's kernels).
 
-mode=eval generates the test corpus in memory from the config's seed (no
-file is read or written besides the run directory's checkpoint), then
-prints the same keys as the JAX mode=eval: the conditioned-rollout
-metrics, the mean and sampled 80-step long-horizon metrics and the
-trivial baselines.
+mode=train trains from scratch or, with restore=, resumes the run (params,
+Adam state, epoch) for the remaining epochs; it writes config.json,
+spn_seeds.json, metrics.jsonl and checkpoints to
+`<run_dir>/<run_name>` only, never into the restored directory unless it
+is that one.  mode=eval generates the test corpus in memory from the
+config's seed (nothing is written), then prints the same keys as the JAX
+mode=eval: the conditioned-rollout metrics, the mean and sampled 80-step
+long-horizon metrics and the trivial baselines.
 """
 
 from __future__ import annotations
@@ -77,12 +81,25 @@ def run_eval(cfg: Config, device=None) -> Dict[str, torch.Tensor]:
     return m
 
 
+def run_train(cfg: Config, device=None):
+    """mode=train: train (or resume); returns (trainer, last metrics)."""
+    from stove_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, device=device)
+    return trainer, trainer.train()
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg, mode, device = build_config(argv)
+    if mode == "train":
+        _, result = run_train(cfg, device)
+        print("final:", {k: v for k, v in result.items()
+                         if not isinstance(v, list)})
+        return 0
     if mode != "eval":
         raise SystemExit(f"not ported yet: mode={mode} (the port runs "
-                         "mode=eval)")
+                         "mode=train and mode=eval)")
     for k, v in run_eval(cfg, device).items():
         print(f"{k}: {np.asarray(v.detach().cpu())}")
     return 0

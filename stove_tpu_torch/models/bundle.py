@@ -1,9 +1,12 @@
 """StoveModel: the public model handle (counterpart of
 `stove_tpu/models/bundle.py`).
 
-Holds the config, the parameter tree and the device, and exposes `infer`
-and `rollout` as methods.  On a CUDA device the rollout kernel's packed
-weights are prepared once here, so every rollout launch reuses them.
+Holds the config, the RAT-SPN region graphs (`specs`, from the run's
+permutation seeds), the parameter tree and the device, and exposes
+`init_params`, `elbo`, `supair_elbo`, `infer` and `rollout`.  On a CUDA
+device the rollout kernel's packed weights are prepared from `params`
+(`set_params` prepares them again after the weights change), so every
+rollout launch reuses them.
 """
 
 from __future__ import annotations
@@ -15,30 +18,69 @@ import torch
 from stove_tpu_torch.config import Config
 from stove_tpu_torch.device import resolve_device
 from stove_tpu_torch.models import stove as stove_lib
+from stove_tpu_torch.models import supair as supair_lib
 from stove_tpu_torch.ops import fused_rollout
 from stove_tpu_torch.train import checkpoint as ckpt_lib
 
 
 class StoveModel:
-    def __init__(self, cfg: Config, params: Dict,
-                 device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, cfg: Config, params: Optional[Dict] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seeds: Optional[supair_lib.SpecSeeds] = None):
+        """`seeds`: the SPN permutation seeds (a fresh draw from cfg.seed
+        when absent); `params`: the weights (a fresh `init_params` when
+        absent)."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = ckpt_lib.params_from_numpy(params, self.device)
-        self.prepared = None
-        if self.device.type == "cuda":
-            self.prepared = fused_rollout.prepare_params(
-                self.params["dynamics"], cfg)
+        self.seeds = seeds if seeds is not None else \
+            supair_lib.draw_spec_seeds(cfg)
+        self.specs = stove_lib.make_specs(cfg, self.seeds)
+        self.set_params(self.init_params() if params is None else params)
 
     @classmethod
     def from_run(cls, run_dir: str, cfg: Optional[Config] = None,
                  step: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None
                  ) -> "StoveModel":
-        """Config (unless given) and latest weights of a JAX run dir."""
+        """Config (unless given), SPN seeds and latest weights of a run
+        directory written by the JAX trainer or the port's."""
         dev = resolve_device(device)
         cfg = cfg if cfg is not None else ckpt_lib.load_config(run_dir)
-        return cls(cfg, ckpt_lib.load_params(run_dir, step, dev), dev)
+        return cls(cfg, ckpt_lib.load_params(run_dir, step, dev), dev,
+                   supair_lib.run_spec_seeds(run_dir, cfg))
+
+    def set_params(self, params: Dict) -> None:
+        """Use `params` (moved to the model's device as needed) and, on the
+        card, pack the rollout kernel's weights from them."""
+        self.params = ckpt_lib.params_from_numpy(params, self.device)
+        self.prepared = None
+        if self.device.type == "cuda":
+            with torch.no_grad():
+                self.prepared = fused_rollout.prepare_params(
+                    self.params["dynamics"], self.cfg)
+
+    def init_params(self, generator: Optional[torch.Generator] = None
+                    ) -> Dict:
+        """Fresh weights, drawn from `generator` (default: one seeded with
+        cfg.seed + 1, as the reference seeds its init key)."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.cfg.seed + 1)
+        return stove_lib.init_params(self.cfg, self.specs, generator,
+                                     self.device)
+
+    def elbo(self, params: Dict, frames: torch.Tensor,
+             actions: Optional[torch.Tensor] = None,
+             rewards: Optional[torch.Tensor] = None,
+             noise: Optional[stove_lib.ElboNoise] = None,
+             generator: Optional[torch.Generator] = None
+             ) -> stove_lib.ElboOut:
+        return stove_lib.elbo(params, self.cfg, self.specs, frames, actions,
+                              rewards, noise, generator)
+
+    def supair_elbo(self, params: Dict, frames: torch.Tensor,
+                    noise: torch.Tensor):
+        return supair_lib.elbo(params["supair"], self.cfg, self.specs.supair,
+                               frames, noise)
 
     def infer(self, frames: torch.Tensor,
               actions: Optional[torch.Tensor] = None,

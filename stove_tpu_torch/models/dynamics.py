@@ -1,11 +1,11 @@
 """Graph-net transition model p(z_t | z_{t−1}, a_{t−1}).
 
-Counterpart of `stove_tpu/models/dynamics.py::apply`: per-object embed and
-self MLPs, a relational MLP over all ordered pairs whose first layer is
-factored into receiver and sender halves, attention-gated pair sums with
-the diagonal masked, an output MLP giving (Δv, Δℓ, raw σ), Euler
-integration, and the optional open-loop std head and geometry-aware reward
-head.  Parameters are the JAX tree's dicts/lists with (in, out) weights.
+Counterpart of `stove_tpu/models/dynamics.py` (`init_params`, `apply`):
+per-object embed and self MLPs, a relational MLP over all ordered pairs
+whose first layer is factored into receiver and sender halves,
+attention-gated pair sums with the diagonal masked, an output MLP giving
+(Δv, Δℓ, raw σ), Euler integration, and the optional open-loop std head
+and geometry-aware reward head.  Parameters are the JAX tree's dicts/lists with (in, out) weights.
 
 State layout per object: z_o = [sx, sy, x, y, vx, vy, ℓ_1..ℓ_cl].
 """
@@ -33,6 +33,42 @@ class DynOut(NamedTuple):
     reward: torch.Tensor    # (B,) predicted reward (zeros without a head)
     std_open: torch.Tensor  # (B, O, 6+cl) open-loop std (aliases std
     #   unless cfg.open_loop_sigma and the checkpoint has the head)
+
+
+def _mlp_init(generator, sizes, scale: float, device):
+    return [{"w": (torch.randn((din, dout), generator=generator)
+                   * (scale / din) ** 0.5).to(device),
+             "b": torch.zeros((dout,), device=device)}
+            for din, dout in zip(sizes[:-1], sizes[1:])]
+
+
+def init_params(cfg: Config, generator: Optional[torch.Generator] = None,
+                device=None) -> Dict:
+    """Counterpart of `dynamics.init_params` (dynamics.py:71): dense
+    weights N(0, 2/fan_in) (the output MLP at 1/fan_in, its last layer zero
+    so the transition starts as the identity flow), zero biases; the
+    open-loop std and reward heads when the config asks for them."""
+    h = cfg.dyn_hidden
+    d_in = cfg.full_state_dim + (cfg.num_actions if cfg.action_conditioned
+                                 else 0)
+    d_out = 2 + cfg.cl + (4 + cfg.cl)
+    hid = [h] * cfg.dyn_layers
+    params = {
+        "embed": _mlp_init(generator, [d_in] + hid, 2.0, device),
+        "self": _mlp_init(generator, [h] + hid, 2.0, device),
+        "rel": _mlp_init(generator, [2 * h] + hid + [h + 1], 2.0, device),
+        "out": _mlp_init(generator, [2 * h] + hid + [d_out], 1.0, device),
+    }
+    params["out"][-1]["w"] = torch.zeros_like(params["out"][-1]["w"])
+    if cfg.open_loop_sigma:
+        params["open"] = _mlp_init(generator, [2 * h, h, 4 + cfg.cl], 2.0,
+                                   device)
+    if cfg.reward_head:
+        params["reward"] = _mlp_init(generator, [2 * h + 2] + hid + [1], 2.0,
+                                     device)
+        params["reward_att"] = _mlp_init(generator, [2 * h + 2] + hid + [1],
+                                         2.0, device)
+    return params
 
 
 def mlp(layers, x: torch.Tensor) -> torch.Tensor:

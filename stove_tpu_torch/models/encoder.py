@@ -1,8 +1,8 @@
 """Per-frame encoder CNN: image → q(z_where) box parameters per object.
 
-Counterpart of `stove_tpu/models/encoder.py::apply`.  Parameters keep the
-JAX layouts (conv weights HWIO, dense weights (in, out)); three layout
-points have to match the JAX code exactly:
+Counterpart of `stove_tpu/models/encoder.py` (`init_params`, `apply`).
+Parameters keep the JAX layouts (conv weights HWIO, dense weights
+(in, out)); three layout points have to match the JAX code exactly:
 
 * space-to-depth folds each s×s pixel block into channels in (row, col)
   order within the block (encoder.py:79-82);
@@ -14,13 +14,47 @@ points have to match the JAX code exactly:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from stove_tpu_torch.config import Config
 from stove_tpu_torch.ops import gaussians
+
+
+def _normal(generator, shape, scale: float, device) -> torch.Tensor:
+    return (torch.randn(shape, generator=generator) * scale).to(device)
+
+
+def init_params(cfg: Config, generator: Optional[torch.Generator] = None,
+                device=None) -> Dict:
+    """Counterpart of `encoder.init_params` (encoder.py:37): He-normal conv
+    weights (HWIO) and dense weights N(0, scale/fan_in) with scale 2, the
+    head at scale 0.01 so boxes start centred; zero biases."""
+    def dense(din, dout, scale):
+        return {"w": _normal(generator, (din, dout), (scale / din) ** 0.5,
+                             device),
+                "b": torch.zeros((dout,), device=device)}
+
+    params: Dict = {"convs": []}
+    s2d = max(1, cfg.encoder_space_to_depth)
+    cin = cfg.channels * s2d * s2d
+    size = cfg.img_size // s2d
+    n_convs = len(cfg.encoder_channels)
+    for i, cout in enumerate(cfg.encoder_channels):
+        params["convs"].append({
+            "w": _normal(generator, (3, 3, cin, cout), (2.0 / (9 * cin)) ** 0.5,
+                         device),
+            "b": torch.zeros((cout,), device=device)})
+        cin = cout
+        if not (cfg.encoder_final_stride1 and i == n_convs - 1):
+            size = (size + 1) // 2
+    hidden = cfg.encoder_mlp_hidden
+    params["mlp1"] = dense(size * size * cin, hidden, 2.0)
+    params["mlp2"] = dense(hidden, hidden, 2.0)
+    params["head"] = dense(hidden, cfg.num_obj * 8, 0.01)
+    return params
 
 
 def _same_pad(n: int, k: int, s: int) -> Tuple[int, int]:

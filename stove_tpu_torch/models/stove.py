@@ -1,17 +1,20 @@
-"""STOVE inference and rollout (counterpart of `stove_tpu/models/stove.py`).
+"""STOVE: inference, the training ELBO and rollout (counterpart of
+`stove_tpu/models/stove.py`).
 
-The eval path of the state-space model: encode every frame at once, the
-SuPAIR-only init at t = 0, 1, the posterior recursion (dynamics step,
-slot alignment, products of Gaussians, reparameterized sample, KL
-increment) for t ≥ 2, and the open-loop rollout.
+Encode every frame at once, the SuPAIR-only init at t = 0, 1, the
+posterior recursion (dynamics step, slot alignment, products of
+Gaussians, reparameterized sample, KL increment) for t ≥ 2, the SuPAIR
+likelihood of every frame at its sampled boxes, latent overshooting, and
+the open-loop rollout.
 
 Noise is explicit.  `infer` takes an `InferNoise` (the t=0/1 box draws,
-the initial latents and the per-step ε of stove.py:155-191) or draws one
-from a `torch.Generator`; the parity tests hand in JAX's own draws.  The
-posterior recursion is the plain loop `_scan_plain`, the reference
-semantics of `_scan_xla`; its fused kernel is the next slice of the port.
-`rollout` sends CUDA tensors to the fused rollout kernel and CPU tensors
-to the plain loop.
+the initial latents and the per-step ε of stove.py:155-191) and `elbo` an
+`ElboNoise` (that plus the overshoot draws), or draws them from a
+`torch.Generator`; the parity tests hand in JAX's own draws.  The
+recursion dispatches on `scan_impl` (`scan_posterior`): the fused scan
+kernel for "pallas" on the card, the plain loop otherwise.  `rollout`
+sends CUDA tensors to the fused rollout kernel and CPU tensors to the
+plain loop.
 """
 
 from __future__ import annotations
@@ -25,8 +28,25 @@ import torch.nn.functional as F
 from stove_tpu_torch.config import Config
 from stove_tpu_torch.models import dynamics as dyn_lib
 from stove_tpu_torch.models import supair as supair_lib
-from stove_tpu_torch.models.dynamics import LAT, POS, SIZE, VEL
-from stove_tpu_torch.ops import fused_rollout, gaussians
+from stove_tpu_torch.models.dynamics import POS, SIZE
+from stove_tpu_torch.ops import fused_rollout, fused_scan, gaussians
+
+
+class StoveSpecs(NamedTuple):
+    supair: supair_lib.SupairSpecs
+
+
+def make_specs(cfg: Config, seeds: supair_lib.SpecSeeds) -> StoveSpecs:
+    return StoveSpecs(supair_lib.make_specs(cfg, seeds))
+
+
+def init_params(cfg: Config, specs: StoveSpecs,
+                generator: Optional[torch.Generator] = None,
+                device=None) -> Dict:
+    return {
+        "supair": supair_lib.init_params(cfg, specs.supair, generator, device),
+        "dynamics": dyn_lib.init_params(cfg, generator, device),
+    }
 
 
 # --------------------------------------------------------------------------
@@ -170,74 +190,195 @@ def infer(params: Dict, cfg: Config, frames: torch.Tensor,
                     rewards)
 
 
-def _scan_plain(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
-                sup_mean, sup_std, actions, eps):
-    """The posterior recursion as a plain loop over t (reference semantics
-    of `_scan_xla`, stove.py:217-302).  sup_mean/sup_std (B, T2, O, 4) for
-    t = 2..T−1; actions (B, T2) = a_{t−1}; eps (B, T2, O, D).
-    Returns (z (B,T2,O,D), z_mean (B,T2,O,D), kl (B,), rewards (B,T2)).
-    """
-    B, T2 = sup_mean.shape[:2]
-    z_prev, prev_sup_m, prev_sup_s = z1, carry_m, carry_s
-    zs, zms, rews = [], [], []
-    kl = z1.new_zeros((B,))
-    for t in range(T2):
-        dyn = dyn_lib.apply(dyn_params, cfg, z_prev, actions[:, t])
-        d_mean, d_std = dyn.mean, dyn.std
-
-        sm, ss = align_slots(d_mean[..., POS], sup_mean[:, t, :, 2:4],
-                             sup_mean[:, t], sup_std[:, t])
-
-        q_pos_m, q_pos_s = gaussians.product(
-            sm[..., 2:4], ss[..., 2:4], d_mean[..., POS], d_std[..., POS])
-        if cfg.velocity_posterior:
-            if cfg.velocity_obs == "filtered":
-                v_obs = q_pos_m - prev_sup_m
-                v_obs_s = torch.sqrt(q_pos_s ** 2 + prev_sup_s ** 2)
-            elif cfg.velocity_obs_full_std:
-                v_obs = sm[..., 2:4] - prev_sup_m
-                v_obs_s = torch.sqrt(ss[..., 2:4] ** 2 + prev_sup_s ** 2)
-            else:
-                v_obs = sm[..., 2:4] - z_prev[..., POS]
-                v_obs_s = ss[..., 2:4]
-            q_vel_m, q_vel_s = gaussians.product(
-                v_obs, v_obs_s, d_mean[..., VEL], d_std[..., VEL])
-        else:
-            q_vel_m, q_vel_s = d_mean[..., VEL], d_std[..., VEL]
-        q_size_m, q_size_s = gaussians.product(
-            sm[..., 0:2], ss[..., 0:2], d_mean[..., SIZE], d_std[..., SIZE])
-        q_lat_m, q_lat_s = d_mean[..., LAT], d_std[..., LAT]
-
-        q_mean = torch.cat([q_size_m, q_pos_m, q_vel_m, q_lat_m], -1)
-        q_std = torch.cat([q_size_s, q_pos_s, q_vel_s, q_lat_s], -1)
-        z_t = q_mean + q_std * eps[:, t]
-
-        log_p = torch.sum(gaussians.log_prob(z_t, d_mean, d_std), (-2, -1))
-        log_q = torch.sum(gaussians.log_prob(z_t, q_mean, q_std), (-2, -1))
-        kl = kl + (log_p - log_q)
-        zs.append(z_t)
-        zms.append(q_mean)
-        rews.append(dyn.reward)
-        if cfg.velocity_obs == "filtered":
-            prev_sup_m, prev_sup_s = q_pos_m, q_pos_s
-        else:
-            prev_sup_m, prev_sup_s = sm[..., 2:4], ss[..., 2:4]
-        z_prev = z_t
-    if T2 == 0:
-        D = z1.shape[-1]
-        empty = z1.new_zeros((B, 0, cfg.num_obj, D))
-        return empty, empty, kl, z1.new_zeros((B, 0))
-    return (torch.stack(zs, 1), torch.stack(zms, 1), kl,
-            torch.stack(rews, 1))
-
-
 def scan_posterior(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
                    sup_mean, sup_std, actions, eps):
-    """The phase-2 recursion.  Every `scan_impl` runs the plain loop in this
-    slice of the port: the fused scan kernel (pallas_scan.scan_fused)
-    is the next slice."""
-    return _scan_plain(dyn_params, cfg, z1, carry_m, carry_s, sup_mean,
-                       sup_std, actions, eps)
+    """The phase-2 recursion, dispatched as stove.py:338-347 does:
+    `scan_impl="pallas"` with T−2 > 0 goes through `fused_scan.scan_fused`
+    (the CUDA kernel on the card, the plain loop on the CPU, the plain
+    loop's gradient on both); otherwise the plain loop
+    `fused_scan.scan_reference`."""
+    if cfg.scan_impl == "pallas" and sup_mean.shape[1] > 0:
+        return fused_scan.scan_fused(dyn_params, cfg, z1, carry_m, carry_s,
+                                     sup_mean, sup_std, actions, eps)
+    return fused_scan.scan_reference(dyn_params, cfg, z1, carry_m, carry_s,
+                                     sup_mean, sup_std, actions, eps)
+
+
+class ElboNoise(NamedTuple):
+    """Every standard normal `elbo` consumes: `infer`'s, and the
+    overshoot's open-loop draws (K, B·(T−K), O, D) when
+    cfg.overshoot_sample is on (else None)."""
+    infer: InferNoise
+    overshoot: Optional[torch.Tensor]
+
+
+def draw_elbo_noise(cfg: Config, B: int, T: int,
+                    generator: Optional[torch.Generator],
+                    device: torch.device) -> ElboNoise:
+    """Standard normals for `elbo`, drawn on the CPU from `generator` and
+    moved to `device`."""
+    inf = draw_infer_noise(cfg, B, T, generator, device)
+    over = None
+    K = cfg.overshoot_k
+    if cfg.overshoot_sample and K > 0 and T > K:
+        over = torch.randn((K, B * (T - K), cfg.num_obj, cfg.full_state_dim),
+                           generator=generator).to(device)
+    return ElboNoise(inf, over)
+
+
+class ElboOut(NamedTuple):
+    loss: torch.Tensor
+    elbo: torch.Tensor
+    log_lik: torch.Tensor
+    kl: torch.Tensor
+    reward_loss: torch.Tensor
+    overshoot_loss: torch.Tensor
+    overshoot_reward_loss: torch.Tensor
+    open_sigma_nll: torch.Tensor
+    inferred: InferOut
+
+
+def _balanced_bce(pred: torch.Tensor, target: torch.Tensor, balanced: bool,
+                  label_smooth: float = 0.0, pos_rate: float = 0.0
+                  ) -> torch.Tensor:
+    """Binary cross-entropy, optionally inverse-frequency class-weighted
+    (by `pos_rate` when > 0, else the batch mean, clipped to [0.05, 0.95])
+    and label-smoothed; the class weights use the hard labels."""
+    eps = 1e-6
+    soft = target * (1.0 - label_smooth) + 0.5 * label_smooth
+    bce = -(soft * torch.log(pred + eps)
+            + (1 - soft) * torch.log(1 - pred + eps))
+    if balanced:
+        pr = (torch.clamp(torch.as_tensor(pos_rate, dtype=pred.dtype,
+                                          device=pred.device), 0.05, 0.95)
+              if pos_rate > 0 else torch.clamp(torch.mean(target), 0.05, 0.95))
+        w = torch.where(target > 0.5, 0.5 / pr, 0.5 / (1.0 - pr))
+        bce = bce * w
+    return torch.mean(bce)
+
+
+def overshoot_losses(params: Dict, cfg: Config, inf: InferOut,
+                     actions: Optional[torch.Tensor],
+                     rewards: Optional[torch.Tensor],
+                     noise: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Latent overshooting (stove.py:386-520): from every posterior sample
+    z_t (t ≤ T−K) the dynamics rolls K steps open loop; predicted positions
+    are held to the detached posterior position means at t+k.  Also the
+    open-loop reward loss (reward head with actions) and the open-loop std
+    NLL (open_loop_sigma).  `noise` (K, B·S, O, D): the open-loop draws
+    when cfg.overshoot_sample is on.  Returns (position, reward, sigma
+    NLL) losses."""
+    K = cfg.overshoot_k
+    B, T = inf.z.shape[:2]
+    S = T - K
+    zero = inf.z.new_zeros(())
+    if K <= 0:
+        if cfg.open_loop_sigma:
+            raise ValueError(
+                "open_loop_sigma=True requires overshoot_k >= 1: the "
+                "sigma-open NLL is computed inside the overshoot loss, so "
+                "with overshoot_k=0 the open-loop std head never trains.")
+        return zero, zero, zero
+    if S <= 0:
+        raise ValueError(
+            f"overshoot_k={K} requires window > K (window={T}): no valid "
+            "open-loop start indices — the overshoot losses would silently "
+            "vanish. Lower overshoot_k or raise window.")
+    if actions is None:
+        actions = torch.zeros((B, T), dtype=torch.long, device=inf.z.device)
+
+    z = inf.z[:, :S].reshape(B * S, *inf.z.shape[2:])
+    targets = inf.pos_mean.detach()                            # (B, T, O, 2)
+    mean_targets = inf.z_mean.detach()                         # (B, T, O, D)
+    supervise_reward = (cfg.action_conditioned and cfg.reward_head
+                        and rewards is not None
+                        and cfg.reward_overshoot_weight > 0)
+    total_pos, total_rew, sigma_nll = zero, zero, zero
+
+    if cfg.open_loop_sigma and T >= 3:
+        horizons = tuple(k for k in sorted(set(cfg.open_loop_sigma_horizons))
+                         if 1 <= k <= T - 2) or (1,)
+        kmax = horizons[-1]
+        Sm = T - 1 - kmax
+        zm = mean_targets[:, 1:1 + Sm].reshape(B * Sm, *mean_targets.shape[2:])
+        z_roll = zm
+        var_acc = torch.zeros_like(zm[..., 2:])
+        terms = []
+        for k in range(1, kmax + 1):
+            act_m = actions[:, k:k + Sm].reshape(B * Sm)
+            dyn_m = dyn_lib.apply(params["dynamics"], cfg, z_roll, act_m)
+            var_acc = var_acc + dyn_m.std_open[..., 2:] ** 2
+            if k in horizons:
+                tgt = mean_targets[:, 1 + k:1 + k + Sm].reshape(
+                    B * Sm, *mean_targets.shape[2:])
+                nll = -gaussians.log_prob(tgt[..., 2:],
+                                          dyn_m.mean[..., 2:].detach(),
+                                          torch.sqrt(var_acc))
+                terms.append(torch.mean(torch.sum(nll, dim=(-2, -1))))
+            z_roll = dyn_m.mean.detach()
+        sigma_nll = sum(terms) / len(terms)
+
+    for k in range(1, K + 1):
+        act_k = actions[:, k - 1:k - 1 + S]
+        dyn = dyn_lib.apply(params["dynamics"], cfg, z, act_k.reshape(B * S))
+        if cfg.overshoot_sample and noise is not None:
+            z = gaussians.sample(dyn.mean, dyn.std.detach(), noise[k - 1])
+        else:
+            z = dyn.mean
+        pred_pos = z[..., POS].reshape(B, S, cfg.num_obj, 2)
+        tgt = targets[:, k:k + S]
+        total_pos = total_pos + torch.mean(
+            torch.sum((pred_pos - tgt) ** 2, -1))
+        if supervise_reward:
+            r_tgt = rewards[:, k - 1:k - 1 + S]
+            total_rew = total_rew + _balanced_bce(
+                dyn.reward.reshape(B, S), r_tgt, cfg.reward_balanced_loss,
+                cfg.reward_label_smooth, cfg.reward_pos_rate)
+    return total_pos / K, total_rew / K, sigma_nll
+
+
+def elbo(params: Dict, cfg: Config, specs: StoveSpecs, frames: torch.Tensor,
+         actions: Optional[torch.Tensor], rewards: Optional[torch.Tensor],
+         noise: Optional[ElboNoise] = None,
+         generator: Optional[torch.Generator] = None) -> ElboOut:
+    """Negative training loss for a window (stove.py:523-566): −ELBO/T plus
+    the reward and overshoot terms.  frames (B, T, H, W)."""
+    B, T = frames.shape[:2]
+    if noise is None:
+        noise = draw_elbo_noise(cfg, B, T, generator, frames.device)
+    inf = infer(params, cfg, frames, actions, noise.infer)
+
+    boxes = torch.cat([inf.z[..., SIZE], inf.z[..., POS]], -1)  # (B,T,O,4)
+    ll = supair_lib.likelihood(
+        params["supair"], cfg, specs.supair,
+        frames.reshape(B * T, *frames.shape[2:]),
+        boxes.reshape(B * T, cfg.num_obj, 4))
+    log_lik = torch.sum(ll.reshape(B, T), dim=1)               # (B,)
+
+    elbo_b = log_lik + inf.kl + inf.init_logp - inf.init_logq
+    elbo_mean = torch.mean(elbo_b) / T
+
+    zero = frames.new_zeros(())
+    if cfg.action_conditioned and rewards is not None:
+        reward_loss = _balanced_bce(inf.rewards[:, 2:], rewards[:, 1:T - 1],
+                                    cfg.reward_balanced_loss,
+                                    cfg.reward_label_smooth,
+                                    cfg.reward_pos_rate)
+    else:
+        reward_loss = zero
+    if cfg.overshoot_k > 0:
+        ov, ov_rew, ov_nll = overshoot_losses(params, cfg, inf, actions,
+                                              rewards, noise.overshoot)
+    else:
+        ov = ov_rew = ov_nll = zero
+
+    loss = (-elbo_mean + reward_loss + cfg.overshoot_weight * ov
+            + cfg.reward_overshoot_weight * ov_rew
+            + cfg.open_loop_sigma_weight * ov_nll)
+    return ElboOut(loss, elbo_mean, torch.mean(log_lik) / T,
+                   torch.mean(inf.kl) / T, reward_loss, ov, ov_rew, ov_nll,
+                   inf)
 
 
 # --------------------------------------------------------------------------

@@ -6,10 +6,11 @@ kernel (`csrc/rollout.cu`) runs the action-free graph-net rollout of
 the state and every activation kept on chip; see the notes at the top of
 the source for its bound and design.
 
-* `build` compiles the source with plain `nvcc` for sm_90a into a shared
+* `load` compiles the source with plain `nvcc` for sm_90a into a shared
   library under `build/kernels/` (listed in .gitignore) at first use and
-  loads it with ctypes.  Shapes are compile-time (-D flags from the config),
-  so a library is built once per (O, cl, h) and reused by content hash.
+  loads it with ctypes (`ops/_build.py`).  Shapes are compile-time (-D
+  flags from the config, `job`), so a library is built once per
+  (O, cl, h) and reused by content hash.
 * `prepare_params` packs the dynamics weights into the one flat f32 buffer
   the kernel reads (`param_layout` gives its order).
 * `launch_kernel` checks device, dtype, shape and contiguity, allocates
@@ -25,28 +26,16 @@ the source for its bound and design.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from stove_tpu_torch.config import Config
 from stove_tpu_torch.models import dynamics as dyn_lib
+from stove_tpu_torch.ops import _build
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "rollout.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 TILE = 16          # samples per block (STOVE_TB)
-
-# loaded libraries by build key; a process loads each .so once
-_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def _dout(cfg: Config) -> int:
@@ -114,6 +103,13 @@ def prepare_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
     weights' device.
     """
     check_supported(cfg, dyn_params)
+    return pack_params(dyn_params, cfg)
+
+
+def pack_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
+    """The packing of `prepare_params` without its support check: the
+    posterior scan kernel (ops/fused_scan.py) reads the same buffer and
+    checks what it supports itself."""
     p = dyn_params
     h = cfg.dyn_hidden
     w_rel0, w_rel2, b_rel2 = p["rel"][0]["w"], p["rel"][2]["w"], p["rel"][2]["b"]
@@ -186,55 +182,14 @@ def rollout_states_reference(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
 # the CUDA kernel
 # --------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the rollout "
-                           "kernel is built from csrc/rollout.cu at first use")
-    return found
+def job(cfg: Config) -> _build.Job:
+    """(source, defines) of the rollout library for this config's shapes."""
+    return ("rollout.cu", (f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
+                           f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}"))
 
 
-def _defines(cfg: Config) -> List[str]:
-    return [f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
-            f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}"]
-
-
-def build(cfg: Config) -> Tuple[Path, str]:
-    """Compile csrc/rollout.cu for this config's shapes, if not yet built.
-
-    Returns (library path, nvcc's output: the -Xptxas -v register and
-    shared-memory report, empty when the library already existed).
-    """
-    defines = _defines(cfg)
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS + defines).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"rollout_{digest}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)          # atomic: a concurrent build sees all or nothing
-    return out, proc.stdout + proc.stderr
-
-
-def load(cfg: Config) -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library for `cfg`."""
-    path, _ = build(cfg)
-    key = str(path)
-    lib = _LIBS.get(key)
-    if lib is None:
-        lib = ctypes.CDLL(key)
+def _setup(cfg: Config):
+    def setup(lib: ctypes.CDLL) -> None:
         lib.stove_rollout_param_count.restype = ctypes.c_int
         lib.stove_rollout_param_count.argtypes = []
         lib.stove_rollout_smem_bytes.restype = ctypes.c_int
@@ -252,10 +207,15 @@ def load(cfg: Config) -> ctypes.CDLL:
         if lib.stove_rollout_param_count() != expect:
             raise RuntimeError(
                 f"kernel packs {lib.stove_rollout_param_count()} params, "
-                f"param_layout {expect}: csrc/rollout.cu and "
+                f"param_layout {expect}: csrc/dyn_core.cuh and "
                 f"fused_rollout.param_layout disagree")
-        _LIBS[key] = lib
-    return lib
+    return setup
+
+
+def load(cfg: Config) -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library for `cfg`."""
+    src, defines = job(cfg)
+    return _build.load(src, defines, _setup(cfg))
 
 
 def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
@@ -263,23 +223,18 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
     """Check the inputs, allocate the output and launch the kernel once on
     the current stream.  Takes CUDA tensors only.  `launch_kernel.launches`
     counts the launches (a run sets it to 0 and reads it after)."""
-    if z0.device.type != "cuda" or prepared.device.type != "cuda":
-        raise ValueError("the rollout kernel takes CUDA tensors; got z0 on "
-                         f"{z0.device}, params on {prepared.device}")
+    _build.check_device(z0, prepared)
     if z0.dtype != torch.float32 or prepared.dtype != torch.float32:
         raise TypeError("fused rollout takes float32 z0 and params")
     B, O, D = z0.shape
     if O != cfg.num_obj or D != cfg.full_state_dim:
         raise ValueError(f"z0 shape {tuple(z0.shape)} does not match the "
                          f"config (O={cfg.num_obj}, D={cfg.full_state_dim})")
-    if prepared.device != z0.device or prepared.dim() != 1:
+    if prepared.dim() != 1:
         raise ValueError("prepared params must be a flat buffer on z0's "
                          "device (use prepare_params)")
     if not (z0.is_contiguous() and prepared.is_contiguous()):
         raise ValueError("fused rollout needs contiguous z0 and params")
-    if torch.cuda.get_device_capability(z0.device) != (9, 0):
-        raise RuntimeError("the rollout kernel is built for sm_90a (H100); "
-                           f"this card is {torch.cuda.get_device_name(z0.device)}")
     if horizon <= 0 or B == 0:
         return z0.new_empty((B, max(horizon, 0), O, D))
     lib = load(cfg)
@@ -290,11 +245,10 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
                       device=z0.device)
     lo, hi = cfg.min_dyn_std, cfg.max_dyn_std
     with torch.cuda.device(z0.device):
-        stream = torch.cuda.current_stream(z0.device).cuda_stream
         err = lib.stove_rollout_launch(
             z0.data_ptr(), prepared.data_ptr(), out.data_ptr(), B, horizon,
             int(sample), seed, cfg.size_std, lo, hi, cfg.rollout_sigma_temp,
-            int(cfg.latent_residual), stream)
+            int(cfg.latent_residual), _build.stream_of(z0))
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
     launch_kernel.launches += 1

@@ -96,8 +96,9 @@ def test_main_eval_on_cpu_prints_the_jax_keys(capsys):
 
 
 def test_other_modes_are_not_ported():
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tmain.main([f"restore={RUN}", "mode=train", "device=cpu"])
+    for mode in ("mcts", "viz", "generate", "profile"):
+        with pytest.raises(SystemExit, match="not ported yet"):
+            tmain.main([f"restore={RUN}", f"mode={mode}", "device=cpu"])
 
 
 def test_entry_points_need_an_explicit_cpu(monkeypatch):

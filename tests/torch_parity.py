@@ -1,4 +1,5 @@
-"""Helpers shared by the port's parity tests (tests/test_torch_*.py)."""
+"""Helpers shared by the port's parity tests (tests/test_torch_*.py): the
+noise the JAX package draws from its keys, handed to the port explicitly."""
 
 import jax
 import jax.numpy as jnp
@@ -24,3 +25,46 @@ def jax_infer_noise(key, cfg, B, T):
         _t(jax.random.normal(k1, (B, O, 4), jnp.float32)),
         _t(jax.random.normal(kl0, (B, O, cfg.cl), jnp.float32)),
         _t(eps))
+
+
+def jax_elbo_noise(key, cfg, B, T):
+    """The normals `stove_tpu.models.stove.elbo` draws from `key`: infer's,
+    then the overshoot's open-loop draws (overshoot_losses)."""
+    from stove_tpu_torch.models.stove import ElboNoise
+    key, k_os = jax.random.split(key)
+    over = None
+    K = cfg.overshoot_k
+    if cfg.overshoot_sample and 0 < K < T:
+        draws = []
+        for _ in range(K):
+            k_os, k_s = jax.random.split(k_os)
+            draws.append(jax.random.normal(
+                k_s, (B * (T - K), cfg.num_obj, cfg.full_state_dim),
+                jnp.float32))
+        over = _t(jnp.stack(draws))
+    return ElboNoise(jax_infer_noise(key, cfg, B, T), over)
+
+
+def jax_supair_noise(key, B, O):
+    """The normals `stove_tpu.models.supair.elbo` draws from `key`."""
+    return _t(jax.random.normal(key, (B, O, 4), jnp.float32))
+
+
+def jax_spec_seeds(cfg):
+    """The RAT-SPN permutation seeds the JAX package draws for `cfg`
+    (StoveModel's key(cfg.seed), split in supair.make_specs)."""
+    from stove_tpu_torch.models.supair import SpecSeeds
+    k_obj, k_bg = jax.random.split(jax.random.key(cfg.seed))
+
+    def draw(k, n):
+        return tuple(int(s) for s in jax.random.randint(k, (n,), 0,
+                                                        2 ** 31 - 1))
+
+    return SpecSeeds(draw(k_obj, cfg.obj_spn_repetitions),
+                     draw(k_bg, cfg.bg_spn_repetitions))
+
+
+def to_jax(tree):
+    """A nested dict/list of tensors as jnp arrays."""
+    return jax.tree_util.tree_map(lambda x: jnp.asarray(x.detach().numpy()),
+                                  tree)
