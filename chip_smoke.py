@@ -1,12 +1,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's four CUDA kernels from the checkout (one nvcc each, all
-at once), holds each against its plain PyTorch version on the card, runs
-`mode=eval` of the trained 3-ball billiards model (ckpts/r4rp_bill_s32,
-full width) and STOVE training at full width through the port's entry
-points, resumes the trained run through the kernels, and times the
-kernels and the training step.  One line per phase, with the seconds
-since start:
+Builds the port's four CUDA kernel sources from the checkout (one nvcc per
+library, all at once; the rollout source twice, for the action-free and
+the action-conditioned model), holds each kernel against its plain
+PyTorch version on the card, runs `mode=eval` of the trained 3-ball
+billiards model (ckpts/r4rp_bill_s32, full width) and STOVE training at
+full width through the port's entry points, resumes the trained run
+through the kernels, times the kernels and the training step, then runs
+`mode=eval` and MCTS planning (`mode=mcts`) of the trained
+action-conditioned avoidance model (ckpts/r4a_dense_s2, full width)
+through the action-conditioned rollout kernel.  One line per phase, with
+the seconds since start:
 
   (0) device      card name and power limit (nvidia-smi); TF32 off
   (1) build       nvcc of every kernel library: seconds, registers, smem
@@ -49,6 +53,37 @@ since start:
   (11) timing     STOVE and warm-up step, kernel vs plain path (host clock,
                   synchronised), and each kernel vs its plain version at the
                   training shapes (CUDA events), beside its bound
+  (12) act-mean   action-conditioned kernel (actions, reward head) vs plain
+                  mean rollout, r4a_dense_s2 weights, z0 from the posterior
+                  of rendered avoidance frames, random actions.  At B=360
+                  H=10 (the checkpoint's own 10-episode planner leaf), B=360
+                  H=1 (its step) and B=100 H=8 (the eval): states within
+                  1e-4 over steps 1-8 against the plain version in float32
+                  and float64.  At those and at the planning run's leaf and
+                  step (B = E·K·A = 576, H=10 and H=1), and after (14) and
+                  (15) at every other mean shape they launched: step 1's
+                  states within 1e-4 of both, rewards within 1e-4 of both
+                  over steps 1-8 (a long horizon also held by phase (2)'s
+                  criterion); the 8-step state distances printed beside the
+                  float32 plain version's own (card and CPU)
+  (13) act-sampled H=92 position dispersion ratio kernel/plain with one
+                  action sequence for all 8192 samples, in [0.9, 1.1]
+  (14) avoid-eval mode=eval of ckpts/r4a_dense_s2 on the card (launches > 0,
+                  TF32 off, mse_final finite and below the constant-velocity
+                  baseline), again with the plain rollout (no launch):
+                  metrics agree to 1e-4 relative (the 80-step speed ratio to
+                  1e-2); mse_final, detect_mse and reward_auc inside
+                  AVOID_BAND, the JAX package's values on the same corpus
+                  (tests/test_torch_avoidance.py); launches by shape
+  (15) plan       mode=mcts of ckpts/r4a_dense_s2 with mcts_episodes=16,
+                  mcts_episode_len=40 (other planner fields from the run):
+                  oracle mean > model mean > random mean, the paired gain of
+                  the model over random > 2 SEM; rollout launches per round
+                  and by shape
+  (16) act-timing the action-conditioned kernel at the planning run's leaf
+                  (B=576 H=10) and step (B=576 H=1), at the checkpoint's own
+                  leaf (B=360 H=10) and at B=16384 H=92 sampled (CUDA
+                  events), beside its bound and its plain version
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernel table (JSON), the card's name and power
@@ -59,6 +94,7 @@ nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -67,6 +103,15 @@ import time
 
 T0 = time.perf_counter()
 RUN = "ckpts/r4rp_bill_s32"
+AVOID = "ckpts/r4a_dense_s2"
+# mode=eval of AVOID on the card must land here: the range of the JAX
+# package's float32 metrics on the port's test corpus over the posterior
+# draws of jax.random.key(0..31), widened by half its width on each side
+# (tests/test_torch_avoidance.py::test_eval_band_from_the_jax_package
+# recomputes the draws and checks this band on the CPU; the port equals
+# the JAX package under the same draw, test_eval_matches_jax_on_its_noise)
+AVOID_BAND = {"mse_final": (0.0086, 0.0129), "detect_mse": (2.14e-4, 2.37e-4),
+              "reward_auc": (0.861, 0.914)}
 BUDGET_S = 240.0          # start the optional B=65536 timing only before this
 
 
@@ -91,10 +136,14 @@ def macs_per_frame(cfg) -> int:
     """Multiply-adds of one dynamics step for one sample (all objects), as
     the kernel computes them: embed, self, receiver|sender, the relational
     MLP over O(O-1) ordered pairs, the output MLP (padded last layer
-    counted at its true width)."""
+    counted at its true width); with a reward head, its two heads per
+    object: [s ; r] -> h, h -> h, h -> 1 (the gap and distance rows are
+    elementwise)."""
     O, h, D, cl = cfg.num_obj, cfg.dyn_hidden, cfg.full_state_dim, cfg.cl
     per_obj = D * h + h * h + 2 * h * h + 2 * h * h + 2 * h * h + h * h \
         + h * (6 + 2 * cl)
+    if cfg.reward_head:
+        per_obj += 2 * (2 * h * h + h * h + h)
     per_pair = h * h + h * (h + 1)
     return O * per_obj + O * (O - 1) * per_pair
 
@@ -147,7 +196,7 @@ def main() -> int:
     cfg = ckpt_lib.load_config(RUN)
     model = StoveModel.from_run(RUN, device=dev)
     sspecs = model.specs.supair
-    jobs = [fr.job(cfg), fscan.job(cfg),
+    jobs = [fr.job(cfg), fr.job(ckpt_lib.load_config(AVOID)), fscan.job(cfg),
             fscan.job(cfg.with_overrides(velocity_obs_full_std=False)),
             fscan.job(cfg.with_overrides(velocity_obs="filtered")),
             fspn.job(sspecs.obj), fspn.job(sspecs.bg),
@@ -161,7 +210,9 @@ def main() -> int:
               f"{_build.ptxas_report(path) or 'already built'}")
     lib = fr.load(cfg)
     phase("build", f"smem per block: rollout {lib.stove_rollout_smem_bytes()} "
-          f"B, scan {fscan.load(cfg).stove_scan_smem_bytes()} B, spn obj "
+          f"B (with actions and reward head "
+          f"{fr.load(ckpt_lib.load_config(AVOID)).stove_rollout_smem_bytes()}"
+          f" B), scan {fscan.load(cfg).stove_scan_smem_bytes()} B, spn obj "
           f"{fspn.load(sspecs.obj).stove_spn_smem_bytes()} B / bg "
           f"{fspn.load(sspecs.bg).stove_spn_smem_bytes()} B, likelihood "
           f"{flik.load(cfg, sspecs).stove_lik_smem_bytes()} B")
@@ -274,48 +325,7 @@ def main() -> int:
     check(math.isfinite(mse) and mse < lin,
           f"mse_final {mse} finite and below linear baseline {lin}")
 
-    def plain_rollout(dyn_params, c, z0, horizon, sample=True,
-                      generator=None, prepared=None, actions=None):
-        noise = None
-        if sample:
-            noise = torch.randn((z0.shape[0], horizon) + tuple(z0.shape[1:]),
-                                generator=generator, dtype=z0.dtype).to(z0)
-        return fr.rollout_states_reference(dyn_params, c, z0, horizon,
-                                           noise, actions)
-
-    kernel_dispatch = fr.rollout
-    fr.rollout = plain_rollout
-    try:
-        t = time.perf_counter()
-        mp = entry.run_eval(ecfg, edev)
-        torch.cuda.synchronize()
-        plain_eval_s = time.perf_counter() - t
-    finally:
-        fr.rollout = kernel_dispatch
-    check(fr.launch_kernel.launches == launches,
-          "the plain-rollout eval launched no kernel")
-    # The mean-path metrics are held to 1e-4 relative, except the 80-step
-    # mean-rollout speed ratio: by step 80 the two float32 rollouts have
-    # drifted apart (phase 2 shows it), so that mean of displacements is
-    # held to 1e-2.  The sampled long-horizon metrics use different noise
-    # streams by design and are not compared.
-    worst, worst_lh = 0.0, 0.0
-    for k, v in m.items():
-        if k.startswith("longhorizon_sampled"):
-            continue
-        a, b = v.double(), mp[k].double()
-        rel = ((a - b).abs() / b.abs().clamp_min(1e-12)).max().item()
-        if k == "longhorizon_speed_ratio":
-            worst_lh = rel
-        else:
-            worst = max(worst, rel)
-        print(f"  plain {k}: {mp[k].detach().cpu().numpy()} (rel diff "
-              f"{rel:.2e})")
-    phase("eval", f"plain-rollout eval {plain_eval_s:.2f} s; kernel vs plain "
-          f"metrics: worst relative difference {worst:.2e} (8-step rollout, "
-          f"baselines, in-frame share), 80-step speed ratio {worst_lh:.2e}")
-    check(worst <= 1e-4, f"eval metrics kernel vs plain rel diff {worst}")
-    check(worst_lh <= 1e-2, f"80-step speed ratio rel diff {worst_lh}")
+    compare_plain_eval("eval", m, ecfg, edev, launches)
 
     # ---- (5) throughput of the sampled kernel
     macs = macs_per_frame(cfg)
@@ -345,6 +355,7 @@ def main() -> int:
           f"{flops / (times[B] * 1e-3) / 1e12:.2f} TFLOP/s")
 
 
+    act = avoidance_slice(card, dev)
     rollout_entry = {
         "name": "rollout_states", "route": "cuda",
         "source": "stove_tpu_torch/csrc/rollout.cu",
@@ -357,7 +368,7 @@ def main() -> int:
 
     tr = training_slice(card, dev, cfg, model)
     n = tr["launches"]
-    kernels = [rollout_entry]
+    kernels = [rollout_entry, act["entry"]]
     for name, src, rep, key, err, launch, shape in (
             ("scan_fused", "stove_tpu_torch/csrc/scan.cu",
              "stove_tpu/ops/pallas_scan.py:214", "scan", tr["scan_err"],
@@ -377,12 +388,71 @@ def main() -> int:
             "bound_by": by, "library_ms": None, "shape": shape})
     print(json.dumps({"kernels": kernels, "train_step_ms": {
         k: tr[f"step_{k}"] for k in ("kernels", "plain")},
-        "resume": tr["resume"]}))
+        "resume": tr["resume"], "avoidance_eval": act["eval"],
+        "planning": act["plan"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def plain_rollout(dyn_params, c, z0, horizon, sample=True, generator=None,
+                  prepared=None, actions=None):
+    """fused_rollout.rollout's signature on the plain version, on the card."""
+    import torch
+    from stove_tpu_torch.ops import fused_rollout as fr
+    noise = None
+    if sample:
+        noise = torch.randn((z0.shape[0], horizon) + tuple(z0.shape[1:]),
+                            generator=generator, dtype=z0.dtype).to(z0)
+    return fr.rollout_states_reference(dyn_params, c, z0, horizon, noise,
+                                       actions)
+
+
+def compare_plain_eval(name: str, m: dict, ecfg, edev, launches: int) -> dict:
+    """mode=eval again with the plain rollout in place of the kernel's
+    dispatch; every metric of the mean path against the kernel run's `m`.
+    The mean-path metrics are held to 1e-4 relative, except the 80-step
+    mean-rollout speed ratio: by step 80 the two float32 rollouts have
+    drifted apart (phase 2 shows it), so that mean of displacements is
+    held to 1e-2.  The sampled long-horizon metrics use different noise
+    streams by design and are not compared.  Returns the plain run's
+    metrics."""
+    import torch
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch.ops import fused_rollout as fr
+
+    kernel_dispatch = fr.rollout
+    fr.rollout = plain_rollout
+    try:
+        t = time.perf_counter()
+        mp = entry.run_eval(ecfg, edev)
+        torch.cuda.synchronize()
+        plain_eval_s = time.perf_counter() - t
+    finally:
+        fr.rollout = kernel_dispatch
+    check(fr.launch_kernel.launches == launches,
+          "the plain-rollout eval launched no kernel")
+    worst, worst_lh = 0.0, 0.0
+    for k, v in m.items():
+        if k.startswith("longhorizon_sampled"):
+            continue
+        a, b = v.double(), mp[k].double()
+        rel = ((a - b).abs() / b.abs().clamp_min(1e-12)).max().item()
+        if k == "longhorizon_speed_ratio":
+            worst_lh = rel
+        else:
+            worst = max(worst, rel)
+        print(f"  plain {k}: {mp[k].detach().cpu().numpy()} (rel diff "
+              f"{rel:.2e})")
+    phase(name, f"plain-rollout eval {plain_eval_s:.2f} s; kernel vs plain "
+          f"metrics: worst relative difference {worst:.2e} (8-step rollout, "
+          f"rewards, baselines, in-frame share), 80-step speed ratio "
+          f"{worst_lh:.2e}")
+    check(worst <= 1e-4, f"eval metrics kernel vs plain rel diff {worst}")
+    check(worst_lh <= 1e-2, f"80-step speed ratio rel diff {worst_lh}")
+    return mp
 
 
 # ---------------------------------------------------------------------------
@@ -856,6 +926,313 @@ def training_slice(card: str, dev, cfg, model) -> dict:
               f"{out[name + '_plain_ms']:.3f} ms, bound {ms:.4f} ms "
               f"({by}) on {card}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the avoidance slice: the action-conditioned rollout kernel, eval, planning
+# ---------------------------------------------------------------------------
+
+def avoidance_slice(card: str, dev) -> dict:
+    import torch
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch.envs import data as data_lib
+    from stove_tpu_torch.models.bundle import StoveModel
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.planning import runner
+    from stove_tpu_torch.planning import simulators as sims
+    from stove_tpu_torch.train import checkpoint as ckpt_lib
+
+    cfg = ckpt_lib.load_config(AVOID)
+    model = StoveModel.from_run(AVOID, device=dev)
+    dyn, prep = model.params["dynamics"], model.prepared
+    dyn64 = ckpt_lib.params_from_numpy(dyn, dev, torch.float64)
+    A = cfg.num_actions
+    # the planning run of phase (15): every round steps the E·K·A children
+    # of its frontiers (H=1) and values each with one leaf rollout (H =
+    # mcts_horizon); fewer rows only once some episodes' searches are done
+    pcfg, _, pdev = entry.build_config(
+        [f"restore={AVOID}", "mode=mcts", "mcts_episodes=16",
+         "mcts_episode_len=40"])
+    plan_B = pcfg.mcts_episodes * pcfg.mcts_frontier * A
+    plan_shapes = ((plan_B * max(1, pcfg.mcts_eval_samples),
+                    pcfg.mcts_horizon), (plan_B, 1))
+
+    # ---- (12) mean rollout with actions and the reward head, z0 from the
+    # posterior of rendered avoidance frames (with their random actions):
+    # the checkpoint's own planner (10 episodes: B=360), the eval's batch
+    # (B=100, H=8), then the planning run's shapes on further frames, and
+    # after (14) and (15) any other mean shape that they launched
+    gen = torch.Generator().manual_seed(12)
+    wcfg = cfg.with_overrides(seq_len=cfg.window)
+
+    def posterior(n):
+        ep = data_lib.generate(wcfg, n, gen, dev)
+        with torch.no_grad():
+            inf = model.infer(data_lib.normalize_frames(ep.frames),
+                              ep.actions, generator=gen)
+        return inf.z_mean[:, -1].contiguous()                 # (n, O, D)
+
+    z_post = posterior(360)
+    n_rows = max(plan_shapes)[0]
+    if n_rows > 360:
+        z_post = torch.cat([z_post, posterior(n_rows - 360)])
+    check(bool(torch.isfinite(z_post).all()), "avoidance posterior finite")
+    agen = torch.Generator(device=dev).manual_seed(13)
+    pgen = torch.Generator(device=dev).manual_seed(17)
+    held, errs = set(), [0.0, 0.0]
+
+    dyn_cpu = ckpt_lib.params_from_numpy(dyn, "cpu", torch.float32)
+
+    def hold(B, H, name="act-mean", issue_shape=False):
+        """Kernel vs plain mean rollout at (B, H), on the first B posterior
+        states and random actions.  At every shape: step 1's states within
+        1e-4 of the float32 and the float64 plain versions (the kernel's own
+        rounding there is ~1e-5: a fault shows far above it), and the
+        rewards within 1e-4 of both over steps 1-8 (over all steps printed
+        beside the float32 plain version's distance from float64); over a
+        long horizon (H > 20) phase (2)'s criterion too: the kernel's
+        distance from float64 over all steps at most twice the float32 plain
+        version's.  At the shapes named in the docstring (`issue_shape`),
+        the states over steps 1-8 within 1e-4 of both plain versions as
+        well.  Elsewhere that 8-step distance is printed beside the float32
+        plain version's own, on the card and on the CPU: the trained map
+        amplifies float32 rounding ~1.4x a step, so the largest of ~1e5
+        entries reaches 1e-4 from float64 in any float32 evaluation."""
+        held.add((B, H))
+        z0 = z_post[torch.arange(B, device=dev) % z_post.shape[0]]
+        acts = torch.randint(0, A, (B, H), device=dev,
+                             generator=agen if B <= 360 else pgen)
+        got, rew = fr.rollout(dyn, cfg, z0, H, False, None, prep, acts)
+        ref, rref = fr.rollout_states_reference(dyn, cfg, z0, H, None, acts)
+        ref64, rref64 = fr.rollout_states_reference(dyn64, cfg, z0.double(),
+                                                    H, None, acts)
+        cpu, _ = fr.rollout_states_reference(dyn_cpu, cfg, z0.cpu(), H, None,
+                                             acts.cpu())
+        torch.cuda.synchronize()
+        n = min(H, 8)
+        dist = lambda x, y, k: (x[:, :k].double()  # noqa: E731
+                                - y[:, :k].double()).abs().max().item()
+        s32, s64 = dist(got, ref, 1), dist(got, ref64, 1)
+        e32, e64 = dist(got, ref, n), dist(got, ref64, n)
+        p64, c64 = dist(ref, ref64, n), dist(cpu, ref64.cpu(), n)
+        r32, r64 = dist(rew, rref, n), dist(rew, rref64, n)
+        rk_all, rp_all = dist(rew, rref64, H), dist(rref, rref64, H)
+        k_all, p_all = dist(got, ref64, H), dist(ref, ref64, H)
+        errs[0] = max(errs[0], e32 if issue_shape else s32)
+        errs[1] = max(errs[1], r32)
+        phase(name, f"B={B} H={H}: states max |kernel - plain| at step 1 "
+              f"{s32:.3e} (float64 {s64:.3e}), over steps 1-{n} {e32:.3e} "
+              f"(float64 {e64:.3e}" + (f"; limit 1e-4, margin "
+                                       f"{1e-4 / max(e32, e64):.2f}x"
+                                       if issue_shape else "")
+              + f"); float32 plain from float64 over steps 1-{n}: card "
+              f"{p64:.3e}, CPU {c64:.3e}; over all {H} steps from float64: "
+              f"kernel {k_all:.3e}, float32 plain {p_all:.3e}; rewards over "
+              f"steps 1-{n} {r32:.3e} (float64 {r64:.3e}; over all {H} steps "
+              f"from float64: kernel {rk_all:.3e}, float32 plain "
+              f"{rp_all:.3e}), in "
+              f"[{rref.min().item():.3f}, {rref.max().item():.3f}]; states "
+              "by step " + " ".join(
+                  f"{e:.1e}" for e in (got[:, :n] - ref[:, :n]).abs().amax(
+                      dim=(0, 2, 3)).tolist()))
+        check(s32 <= 1e-4 and s64 <= 1e-4,
+              f"action rollout step-1 states error {s32} / {s64} at B={B} "
+              f"H={H}")
+        check(r32 <= 1e-4 and r64 <= 1e-4,
+              f"action rollout rewards error {r32} / {r64} at B={B} H={H}")
+        if issue_shape:
+            check(e32 <= 1e-4 and e64 <= 1e-4,
+                  f"action rollout states error {e32} / {e64} at B={B} H={H}")
+        if H > 20:
+            check(k_all <= 2 * p_all,
+                  f"action rollout's distance from float64 {k_all} > 2x the "
+                  f"float32 plain version's {p_all} at B={B} H={H}")
+
+    for B, H in ((360, 10), (360, 1), (100, 8)):
+        hold(B, H, issue_shape=True)
+    for B, H in plan_shapes:
+        if (B, H) not in held:
+            hold(B, H)
+
+    real_launch = fr.launch_kernel
+
+    @contextlib.contextmanager
+    def recording(shapes):
+        """Count the launches by (B, H, sampled) while the block runs.  The
+        wrapper stands in for the module's launch_kernel, so the launch
+        counter that launch_kernel increments is the wrapper's while it
+        stands, and is handed back after."""
+        def recorded(prepared, c, z0, horizon, sample, *a, **k):
+            key = (z0.shape[0], horizon, bool(sample))
+            shapes[key] = shapes.get(key, 0) + 1
+            return real_launch(prepared, c, z0, horizon, sample, *a, **k)
+        recorded.launches = real_launch.launches
+        fr.launch_kernel = recorded
+        try:
+            yield
+        finally:
+            fr.launch_kernel = real_launch
+            real_launch.launches = recorded.launches
+
+    def hold_launched(shapes, name):
+        """Hold every mean shape a path launched that (12) did not; the
+        sampled ones are held in distribution by (13)."""
+        phase(name, "rollout launches by (B, H, sampled): " + ", ".join(
+            f"{k}: {v}" for k, v in sorted(shapes.items())))
+        for B, H, smp in sorted(shapes):
+            if not smp and (B, H) not in held:
+                hold(B, H, name)
+
+    # ---- (13) sampled, in distribution: one start, one action sequence
+    Bd, Hd = 8192, 92
+    z_one = z_post[:1].expand(Bd, -1, -1).contiguous()
+    acts = torch.randint(0, A, (1, Hd), generator=agen,
+                         device=dev).expand(Bd, -1).contiguous()
+    got, _ = fr.rollout(dyn, cfg, z_one, Hd, True,
+                        torch.Generator().manual_seed(14), prep, acts)
+    noise = torch.randn((Bd, Hd) + tuple(z_one.shape[1:]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(15))
+    ref, _ = fr.rollout_states_reference(dyn, cfg, z_one, Hd, noise, acts)
+    disp = lambda x: x[:, -1, :, 2:4].std(dim=0).mean().item()  # noqa: E731
+    ratio = disp(got) / max(disp(ref), 1e-12)
+    phase("act-sampled", f"H={Hd} B={Bd} position dispersion kernel/plain "
+          f"= {ratio:.4f} ({disp(got):.4f} / {disp(ref):.4f})")
+    check(0.9 <= ratio <= 1.1, f"action rollout dispersion ratio {ratio}")
+
+    # ---- (14) mode=eval of the avoidance model through the entry point
+    ecfg, _, edev = entry.build_config([f"restore={AVOID}", "mode=eval"])
+    torch.backends.cudnn.allow_tf32 = True
+    eval_shapes = {}
+    real_launch.launches = 0
+    t = time.perf_counter()
+    with recording(eval_shapes):
+        m = entry.run_eval(ecfg, edev)
+        torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    eval_launches = real_launch.launches
+    for k, v in m.items():
+        print(f"  {k}: {v.detach().cpu().numpy()}")
+    phase("avoid-eval", f"mode=eval of {AVOID} on the card {eval_s:.2f} s; "
+          f"rollout kernel launches {eval_launches}")
+    check(eval_launches > 0, "avoidance eval launched the rollout kernel")
+    check(not (torch.backends.cudnn.allow_tf32
+               or torch.backends.cuda.matmul.allow_tf32),
+          "the entry point runs with TF32 off")
+    mse, lin = m["mse_final"].item(), m["linear_mse_final"].item()
+    check(math.isfinite(mse) and mse < lin,
+          f"mse_final {mse} finite and below linear baseline {lin}")
+    compare_plain_eval("avoid-eval", m, ecfg, edev, eval_launches)
+    for k, (lo, hi) in AVOID_BAND.items():
+        v = m[k].item()
+        phase("avoid-eval", f"{k} {v:.6g} in [{lo}, {hi}] (the JAX "
+              f"package's range on this corpus, widened)")
+        check(lo <= v <= hi, f"{k} {v} outside [{lo}, {hi}]")
+    hold_launched(eval_shapes, "avoid-eval")
+
+    # ---- (15) planning from pixels: model vs oracle vs random, with the
+    # shape of every rollout launch recorded
+    rounds, shapes = [0], {}
+    real_round = sims.LearnedSimulator._round
+
+    def counted(self, *a, **k):
+        rounds[0] += 1
+        return real_round(self, *a, **k)
+
+    sims.LearnedSimulator._round = counted
+    real_launch.launches = 0
+    t = time.perf_counter()
+    try:
+        with recording(shapes):
+            res = runner.run_planning(pcfg, device=pdev)
+            torch.cuda.synchronize()
+    finally:
+        sims.LearnedSimulator._round = real_round
+    plan_s = time.perf_counter() - t
+    plan_launches = real_launch.launches
+    sc = {k: torch.tensor(v, dtype=torch.float64)
+          for k, v in res["episode_scores"].items()}
+    gain = sc["model"] - sc["random"]
+    gain_sem = (gain.std(unbiased=False) / len(gain) ** 0.5).item()
+    share = ((sc["model"].mean() - sc["random"].mean())
+             / (sc["oracle"].mean() - sc["random"].mean())).item()
+    plan = {"model": res["model_mean_reward"],
+            "oracle": res["oracle_mean_reward"],
+            "random": res["random_mean_reward"],
+            "model_minus_random": gain.mean().item(),
+            "model_minus_random_sem": gain_sem,
+            "model_minus_oracle": res["model_oracle_gap_mean"],
+            "model_minus_oracle_sem": res["model_oracle_gap_sem"],
+            "share_closed": share, "seconds": plan_s, "rounds": rounds[0],
+            "launches": plan_launches}
+    phase("plan", f"{len(gain)} episodes x {pcfg.mcts_episode_len} steps in "
+          f"{plan_s:.1f} s: mean reward oracle {plan['oracle']:.3f} > model "
+          f"{plan['model']:.3f} > random {plan['random']:.3f}; model - random "
+          f"{gain.mean().item():.3f} +- {gain_sem:.3f} (paired SEM); model - "
+          f"oracle {plan['model_minus_oracle']:.3f} +- "
+          f"{plan['model_minus_oracle_sem']:.3f}; the model closes "
+          f"{100 * share:.1f}% of the oracle - random gap; {rounds[0]} "
+          f"model rounds, {plan_launches} rollout launches "
+          f"({plan_launches / max(rounds[0], 1):.2f} per round) on {card}")
+    check(plan["oracle"] > plan["model"] > plan["random"],
+          f"planning order oracle > model > random: {plan}")
+    check(gain.mean().item() > 2 * gain_sem,
+          f"model gain over random {gain.mean().item()} <= 2 SEM {gain_sem}")
+    check(plan_launches == 2 * rounds[0] and rounds[0] > 0,
+          "two rollout launches per planning round")
+    hold_launched(shapes, "plan")
+
+    # ---- (16) timing: the planning run's leaf and step shapes, the
+    # checkpoint's own leaf (10 episodes) and the large sampled shape
+    macs = macs_per_frame(cfg)
+    times = {}
+    leaf, step = plan_shapes
+    for B, H, smp in (leaf + (False,), step + (False,), (360, 10, False),
+                      (16384, 92, True)):
+        if (B, H) in times:
+            continue
+        z0 = z_post[torch.arange(B, device=dev) % z_post.shape[0]]
+        acts = torch.randint(0, A, (B, H), generator=agen, device=dev)
+        g16 = torch.Generator().manual_seed(16)
+        k_ms = time_cuda(lambda: fr.rollout(dyn, cfg, z0, H, smp, g16, prep,
+                                            acts),
+                         iters=50 if B < 1000 else 10, warmup=2)
+        noise = torch.randn((B, H) + tuple(z0.shape[1:]), device=dev) \
+            if smp else None
+        p_ms = time_cuda(lambda: fr.rollout_states_reference(
+            dyn, cfg, z0, H, noise, acts), iters=5 if B < 1000 else 2)
+        flops = 2.0 * macs * B * H
+        nbytes = 4.0 * (z0.numel() * (1 + H) + B * H * 2 + prep.numel())
+        b_ms, by = bound(flops, nbytes)
+        times[(B, H)] = (k_ms, p_ms, b_ms, by)
+        phase("act-timing", f"B={B} H={H} {'sampled' if smp else 'mean'}: "
+              f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} "
+              f"ms ({by}; {macs} MACs/frame), kernel at {100 * b_ms / k_ms:.1f}"
+              f"% of the bound, {flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+              f"{(B + 15) // 16} blocks on {card}")
+    k_ms, p_ms, b_ms, by = times[leaf]
+    entry_ = {
+        "name": "rollout_act", "route": "cuda",
+        "source": "stove_tpu_torch/csrc/rollout.cu",
+        "replaces": "stove_tpu/ops/pallas_rollout.py:484",
+        "launches": eval_launches + plan_launches,
+        "max_abs_err": errs[0], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+        "shape": {"B": leaf[0], "H": leaf[1], "sample": False},
+        "launches_eval": eval_launches, "launches_plan": plan_launches,
+        "launches_by_shape": {
+            f"{path} B={b} H={h}{' sampled' if smp else ''}": v
+            for path, d in (("eval", eval_shapes), ("plan", shapes))
+            for (b, h, smp), v in sorted(d.items())},
+        "max_abs_err_rewards": errs[1],
+        "step_ms": times[step][0], "step_plain_ms": times[step][1],
+        "step_bound_ms": times[step][2],
+        "ms_b360_h10": times[(360, 10)][0],
+        "bound_ms_b360_h10": times[(360, 10)][2],
+        "ms_b16384_h92_sampled": times[(16384, 92)][0],
+        "plain_ms_b16384_h92_sampled": times[(16384, 92)][1],
+        "bound_ms_b16384_h92": times[(16384, 92)][2]}
+    return {"entry": entry_, "plan": plan,
+            "eval": {k: m[k].item() for k in AVOID_BAND}}
 
 
 if __name__ == "__main__":

@@ -1,16 +1,21 @@
 // Graph-net dynamics core shared by the rollout (rollout.cu) and the
 // posterior scan (scan.cu): compile-time shapes, the packed parameter
 // layout, the shared-memory layout, the block-wide matmul and one step of
-// `dynamics.apply` up to the output MLP's raw outputs.
+// `dynamics.apply` up to the output MLP's raw outputs, with the optional
+// action term and geometry-aware reward head.
 //
-// Counterpart of stove_tpu/ops/pallas_rollout.py::dyn_tile_core.  The
-// including file defines STOVE_O, STOVE_CL, STOVE_H and STOVE_TB (samples
-// per block) or takes the defaults below.  Everything here lives in an
+// Counterpart of stove_tpu/ops/pallas_rollout.py::dyn_tile_core and
+// reward_tile_pool.  The including file defines STOVE_O, STOVE_CL, STOVE_H
+// and STOVE_TB (samples per block) or takes the defaults below; an
+// action-conditioned model adds STOVE_ACT=1 and STOVE_NA (actions), a model
+// with a reward head STOVE_REW=1.  Without them the layout, shared memory
+// and code are those of the action-free model.  Everything here lives in an
 // anonymous namespace: each kernel library gets its own copy.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #ifndef STOVE_O
@@ -24,6 +29,15 @@
 #endif
 #ifndef STOVE_TB
 #define STOVE_TB 16
+#endif
+#ifndef STOVE_ACT
+#define STOVE_ACT 0
+#endif
+#ifndef STOVE_NA
+#define STOVE_NA 9
+#endif
+#ifndef STOVE_REW
+#define STOVE_REW 0
 #endif
 
 namespace {
@@ -41,6 +55,9 @@ constexpr int M = O * TB;           // (object, sample) rows
 constexpr int MP = NPAIR * TB;      // (pair, sample) rows
 constexpr int LDO = M + 4;          // padded leading dims (store conflicts)
 constexpr int LDP = MP + 4;
+constexpr bool ACT = STOVE_ACT != 0;  // one-hot action rows into embed layer 0
+constexpr int NA = STOVE_NA;          // actions
+constexpr bool REW = STOVE_REW != 0;  // reward head on the predicted mean
 
 static_assert(HID % 32 == 0 && M % 4 == 0, "widths must be multiples of 32 and 4");
 static_assert(DOUTP <= HID && D <= HID, "output rows must fit a hidden buffer");
@@ -69,7 +86,20 @@ constexpr int OFF_WO1 = OFF_BO0 + HID;
 constexpr int OFF_BO1 = OFF_WO1 + HID * HID;
 constexpr int OFF_WO2 = OFF_BO1 + HID;          // (h, DOUTP), zero padded
 constexpr int OFF_BO2 = OFF_WO2 + HID * DOUTP;
-constexpr int N_PARAMS = OFF_BO2 + DOUTP;
+constexpr int OFF_WE0A = OFF_BO2 + DOUTP;       // (NA, h) action rows of embed[0]
+constexpr int END_ACT = OFF_WE0A + (ACT ? NA * HID : 0);
+// reward head: both heads' first layers side by side, K = [s ; r]
+constexpr int OFF_WH0 = END_ACT;                // (2h, 2h): [score | attention]
+constexpr int OFF_BH0 = OFF_WH0 + 4 * HID * HID;
+constexpr int OFF_WHG = OFF_BH0 + 2 * HID;      // (2h) contact-gap row
+constexpr int OFF_WHD = OFF_WHG + 2 * HID;      // (2h) min-distance row
+constexpr int OFF_WRW1 = OFF_WHD + 2 * HID;     // score layer 1 (h, h)
+constexpr int OFF_BRW1 = OFF_WRW1 + HID * HID;
+constexpr int OFF_WRA1 = OFF_BRW1 + HID;        // attention layer 1 (h, h)
+constexpr int OFF_BRA1 = OFF_WRA1 + HID * HID;
+constexpr int OFF_WH2 = OFF_BRA1 + HID;         // (2h) last columns: score, attention
+constexpr int OFF_BH2 = OFF_WH2 + 2 * HID;      // (4; two used)
+constexpr int N_PARAMS = REW ? OFF_BH2 + 4 : END_ACT;
 
 // ---- shared memory layout (floats)
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -79,7 +109,10 @@ constexpr int SR_SIZE = 2 * HID * LDO;                    // [s ; r]
 constexpr int P2_SIZE = cmax(2 * HID * LDO, HID * LDP);   // [recv ; send] or pair
 constexpr int LG_SIZE = (MP + 3) / 4 * 4;                 // pair attention
 constexpr int WS_FLOATS = 8192;                           // weight chunk (32 KB)
-constexpr int SMEM_FLOATS = ZS_SIZE + AE_SIZE + SR_SIZE + P2_SIZE + LG_SIZE + WS_FLOATS;
+constexpr int RW_SIZE = REW ? 4 * LDO : 0;                // reward: gap, dist, score, logit
+constexpr int ACT_SIZE = ACT ? (TB + 3) / 4 * 4 : 0;      // ints: the step's actions
+constexpr int SMEM_FLOATS = ZS_SIZE + AE_SIZE + SR_SIZE + P2_SIZE + LG_SIZE + WS_FLOATS
+                          + RW_SIZE + ACT_SIZE;
 constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_FLOATS;
 static_assert(SMEM_BYTES <= 232448, "shared memory above the 227 KB a block can use");
 
@@ -212,16 +245,34 @@ __device__ __forceinline__ float sigmoidf(float x) {
 // relational MLP over the O(O-1) ordered pairs (receiver|sender halves of
 // its first layer as one N=2h matmul, the diagonal skipped), the attention-
 // gated pair sums, and the output MLP on [s ; r].  Reads the state zs
-// (D, LDO); leaves the raw outputs -- dv (2), dl (cl), raw std (4 + cl),
-// zero padding up to DOUTP -- in AE (DOUTP, LDO).  AEb, SR, P2, LG and WS
-// are scratch.  Every thread of the block calls it; it ends synchronised.
+// (D, LDO) and, with ACT, each sample's action act[b] (b < TB; written
+// before the call, read after its first barrier); leaves the raw outputs
+// -- dv (2), dl (cl), raw std (4 + cl), zero padding up to DOUTP -- in AE
+// (DOUTP, LDO) and [s ; r] in SR (2h, LDO).  AEb, P2, LG and WS are
+// scratch.  Every thread of the block calls it; it ends synchronised.
 __device__ __forceinline__ void dyn_forward(const float* __restrict__ zs,
                                             const float* __restrict__ P,
                                             float* AE, float* AEb, float* SR,
-                                            float* P2, float* LG, float* WS) {
+                                            float* P2, float* LG, float* WS,
+                                            const int* act = nullptr) {
     const int tid = threadIdx.x;
-    // embed MLP, self MLP (all objects' rows at once)
-    gemm<M, HID, D, true>(zs, LDO, P + OFF_WE0, P + OFF_BE0, AE, LDO, WS);
+    // embed MLP, self MLP (all objects' rows at once).  The one-hot action
+    // contracts with embed[0] to its row D + a: added to every object row
+    // of the sample before layer 0's ReLU (an out-of-range action adds
+    // nothing, as jax.nn.one_hot gives a zero row).
+    if constexpr (ACT) {
+        gemm<M, HID, D, false>(zs, LDO, P + OFF_WE0, P + OFF_BE0, AE, LDO, WS);
+        __syncthreads();
+        for (int i = tid; i < HID * M; i += NT) {
+            const int k = i / M, m = i % M;
+            const int a = act[m % TB];
+            float v = AE[k * LDO + m];
+            if (a >= 0 && a < NA) v += __ldg(P + OFF_WE0A + a * HID + k);
+            AE[k * LDO + m] = fmaxf(v, 0.f);
+        }
+    } else {
+        gemm<M, HID, D, true>(zs, LDO, P + OFF_WE0, P + OFF_BE0, AE, LDO, WS);
+    }
     __syncthreads();
     gemm<M, HID, HID, false>(AE, LDO, P + OFF_WE1, P + OFF_BE1, AEb, LDO, WS);   // e
     __syncthreads();
@@ -296,6 +347,80 @@ __device__ __forceinline__ void integrate_mean(const float* __restrict__ zs,
         }
         Y[d * LDO + m] = v;
     }
+}
+
+// Geometry-aware reward head (pallas_rollout.py::reward_tile_pool,
+// dynamics.py:175-197) on the predicted means Y (D, LDO) and the step's
+// [s ; r] in SR (2h, LDO).  Per (object, sample) row: the contact gap
+// min_j (dist - (s_o + s_j)) and min_j dist over the other objects, with
+// dist = sqrt(|p_o - p_j|^2 + 1e-8) and s the mean of the two size rows;
+// both heads' first layers as one N = 2h matmul over [s ; r] plus the gap
+// and distance rows, ReLU; each head's h -> h ReLU layer; each head's last
+// column.  Leaves the score in RW[2 LDO + m] and the attention logit in
+// RW[3 LDO + m]; F0 (2h, LDO), F1 (2h, LDO), RW (4, LDO) and WS are
+// scratch, and F1 may hold Y (read only before the first barrier).  Every thread of the block calls it; it ends synchronised.
+__device__ __forceinline__ void reward_head(const float* Y,
+                                            const float* __restrict__ SR,
+                                            const float* __restrict__ P,
+                                            float* F0, float* F1, float* RW,
+                                            float* WS) {
+    const int tid = threadIdx.x;
+    for (int m = tid; m < M; m += NT) {
+        const int o = m / TB, b = m % TB;
+        const float px = Y[2 * LDO + m], py = Y[3 * LDO + m];
+        const float so = 0.5f * (Y[m] + Y[LDO + m]);
+        float mg = INFINITY, md = INFINITY;
+#pragma unroll
+        for (int j = 0; j < O; ++j) {
+            if (j == o) continue;
+            const int mj = j * TB + b;
+            const float dx = px - Y[2 * LDO + mj], dy = py - Y[3 * LDO + mj];
+            const float d = sqrtf(dx * dx + dy * dy + 1e-8f);
+            const float sj = 0.5f * (Y[mj] + Y[LDO + mj]);
+            mg = fminf(mg, d - (so + sj));
+            md = fminf(md, d);
+        }
+        RW[m] = mg;
+        RW[LDO + m] = md;
+    }
+    // (the matmul's first barrier orders RW before its use below)
+    gemm<M, 2 * HID, 2 * HID, false>(SR, LDO, P + OFF_WH0, P + OFF_BH0, F0, LDO, WS);
+    __syncthreads();
+    for (int i = tid; i < 2 * HID * M; i += NT) {
+        const int n = i / M, m = i % M;
+        const float v = F0[n * LDO + m] + __ldg(P + OFF_WHG + n) * RW[m]
+                      + __ldg(P + OFF_WHD + n) * RW[LDO + m];
+        F0[n * LDO + m] = fmaxf(v, 0.f);
+    }
+    __syncthreads();
+    gemm<M, HID, HID, true>(F0, LDO, P + OFF_WRW1, P + OFF_BRW1, F1, LDO, WS);
+    gemm<M, HID, HID, true>(F0 + HID * LDO, LDO, P + OFF_WRA1, P + OFF_BRA1,
+                            F1 + HID * LDO, LDO, WS);
+    __syncthreads();
+    for (int i = tid; i < 2 * M; i += NT) {
+        const int hd = i / M, m = i % M;
+        const float* f = F1 + hd * HID * LDO + m;
+        float a = 0.f;
+        for (int k = 0; k < HID; ++k) a = fmaf(f[k * LDO], __ldg(P + OFF_WH2 + hd * HID + k), a);
+        RW[(2 + hd) * LDO + m] = a + __ldg(P + OFF_BH2 + hd);
+    }
+    __syncthreads();
+}
+
+// The reward of sample b < TB from reward_head's rows: softmax over the
+// objects of the attention logits, the pooled score, then a sigmoid.
+__device__ __forceinline__ float reward_pool(const float* __restrict__ RW, int b) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int o = 0; o < O; ++o) mx = fmaxf(mx, RW[3 * LDO + o * TB + b]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int o = 0; o < O; ++o) {
+        const float e = expf(RW[3 * LDO + o * TB + b] - mx);
+        den += e;
+        num += e * RW[2 * LDO + o * TB + b];
+    }
+    return sigmoidf(num / den);
 }
 
 }  // namespace

@@ -1,24 +1,31 @@
 // Fused whole-horizon STOVE dynamics rollout for Hopper (sm_90a).
 //
-// Replaces: stove_tpu/ops/pallas_rollout.py::rollout_states (the Pallas
-// kernel body _make_kernel, its graph-net core dyn_tile_core, Euler
-// integration integrate_mean, and the in-kernel Box-Muller noise of
-// _normals/_bits_to_normal_pairs).  Same contract: z0 (B, O, 6+cl) f32 in,
-// states (B, H, O, 6+cl) f32 out, mean or sampled, all H steps in one
-// launch; state and every activation stay on chip, device memory sees z0
-// in and the trajectory out.
+// Replaces: stove_tpu/ops/pallas_rollout.py::rollout_states and
+// ::rollout_act (the Pallas kernel body _make_kernel, its graph-net core
+// dyn_tile_core with the action term, Euler integration integrate_mean, the
+// reward head reward_tile_pool, and the in-kernel Box-Muller noise of
+// _normals/_bits_to_normal_pairs).  Same contract: z0 (B, O, 6+cl) f32 and,
+// for an action-conditioned model (STOVE_ACT=1), actions (B, H) int32 in;
+// states (B, H, O, 6+cl) f32 and, with the reward head (STOVE_REW=1), the
+// raw reward probabilities (B, H) f32 out; mean or sampled, all H steps in
+// one launch; state and every activation stay on chip, device memory sees
+// z0 and the actions in and the trajectory and rewards out.
 //
 // Bound on this card.  One frame (one sample, one step, all O objects)
 // costs ~613.6k multiply-adds at O=3, h=128, cl=16 (6 ordered pairs), and
 // the bytes are only z0 + the trajectory (264 B per frame), so the work
 // is compute bound: at B=16384, H=92 it is 1.85 TFLOP against ~0.4 GB of
-// traffic.  This kernel computes in f32 on the CUDA cores (67 TFLOP/s
-// peak), which keeps the mean path within 1e-4 of the plain PyTorch
-// version; the bf16 tensor-core bound (989 TFLOP/s) is what a later
-// wgmma version could approach.
+// traffic.  The reward head adds 2 heads x O x (2h*h + h*h + h) = 295,680
+// multiply-adds a frame (1.48x the action-free frame).  This kernel
+// computes in f32 on the CUDA cores (67 TFLOP/s peak), which keeps the
+// mean path within 1e-4 of the plain PyTorch version; the bf16
+// tensor-core bound (989 TFLOP/s) is what a later wgmma version could
+// approach.  At the planner's leaf shape (B = 360, H = 10) the launch is
+// latency bound: 23 blocks on 132 SMs.
 //
 // Design.  The TPU kernel kept all weights resident in VMEM; here the f32
-// weights (172,839 parameters, 691 KB) are far above a block's 227 KB of
+// weights (172,839 parameters, 691 KB, and 136,960 more for the reward
+// head) are far above a block's 227 KB of
 // shared memory, so they stay in global memory (L2 holds them all) and
 // each layer streams through a 32 KB shared staging buffer one chunk of
 // rows at a time, the next chunk in flight in registers while the current
@@ -40,13 +47,16 @@
 // (the diagonal skipped, as the mask in dynamics.py does) and the
 // attention-gated pair sum is reduced per receiver.  The first output
 // layer contracts [s | r] with K=2h, i.e. its self and relational halves
-// stacked.  Noise: Philox4x32-10 keyed by a seed the wrapper draws from the
+// stacked.  The action enters as its row of embed layer 0, added before
+// that layer's ReLU; the reward head runs after the state update on the
+// predicted mean, still in shared memory, in buffers the next step
+// overwrites.  Noise: Philox4x32-10 keyed by a seed the wrapper draws from the
 // caller's torch.Generator, counter (chunk, step, sample, object), both
 // Box-Muller branches.
 //
 // The dynamics core (shapes, parameter layout, block-wide matmul, one
-// dynamics step, Euler integration) lives in dyn_core.cuh, shared with the
-// posterior scan kernel (scan.cu).
+// dynamics step, Euler integration, the reward head) lives in
+// dyn_core.cuh, shared with the posterior scan kernel (scan.cu).
 
 #include "dyn_core.cuh"
 
@@ -82,7 +92,8 @@ __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float& z0, fl
 
 __global__ void __launch_bounds__(NT, 1)
 rollout_kernel(const float* __restrict__ z0, const float* __restrict__ P,
-               float* __restrict__ out, int B, int H, int sample,
+               const int* __restrict__ actions, float* __restrict__ out,
+               float* __restrict__ rewards, int B, int H, int sample,
                unsigned long long seed, float size_std, float std_lo,
                float std_hi, float temp, int latent_residual) {
     extern __shared__ float4 smem4[];
@@ -94,6 +105,8 @@ rollout_kernel(const float* __restrict__ z0, const float* __restrict__ P,
     float* P2 = SR + SR_SIZE;         // (2h, LDO) recv|send, then (h, LDP)
     float* LG = P2 + P2_SIZE;         // (MP) pair attention weights
     float* WS = LG + LG_SIZE;         // weight staging chunk
+    float* RW = WS + WS_FLOATS;       // (4, LDO) reward head rows
+    int* ACTS = reinterpret_cast<int*>(RW + RW_SIZE);   // (TB) the step's actions
 
     const int tid = threadIdx.x;
     const int b0 = blockIdx.x * TB;
@@ -109,7 +122,13 @@ rollout_kernel(const float* __restrict__ z0, const float* __restrict__ P,
     __syncthreads();
 
     for (int t = 0; t < H; ++t) {
-        dyn_forward(zs, P, AE, AEb, SR, P2, LG, WS);
+        if constexpr (ACT) {
+            if (tid < TB) {
+                const int gb = b0 + tid;
+                ACTS[tid] = gb < B ? actions[(size_t)gb * H + t] : 0;
+            }
+        }
+        dyn_forward(zs, P, AE, AEb, SR, P2, LG, WS, ACTS);
         integrate_mean(zs, AE, AEb, latent_residual);   // mean into AEb
         __syncthreads();
         if (sample) {
@@ -146,6 +165,13 @@ rollout_kernel(const float* __restrict__ z0, const float* __restrict__ P,
             const int gb = b0 + b;
             if (gb < B) out[((size_t)gb * H + t) * SD + r] = zs[d * LDO + o * TB + b];
         }
+        if constexpr (REW) {
+            // on the predicted mean (still in AEb) and this step's [s ; r]
+            reward_head(AEb, SR, P, P2, AE, RW, WS);
+            if (tid < TB && b0 + tid < B) {
+                rewards[(size_t)(b0 + tid) * H + t] = reward_pool(RW, tid);
+            }
+        }
     }
 }
 
@@ -160,19 +186,23 @@ int stove_rollout_smem_bytes() { return (int)SMEM_BYTES; }
 int stove_rollout_tile() { return TB; }
 
 // Launches the rollout on `stream`; returns the CUDA error code (0 = ok).
-// Pointers are device pointers; the caller checks shapes and allocates out.
-cudaError_t stove_rollout_launch(const float* z0, const float* params, float* out,
+// Pointers are device pointers; the caller checks shapes and allocates out
+// and rewards.  actions (B, H) int32 is read only with STOVE_ACT, rewards
+// (B, H) written only with STOVE_REW; each must be non-null there.
+cudaError_t stove_rollout_launch(const float* z0, const float* params,
+                                 const int* actions, float* out, float* rewards,
                                  int B, int H, int sample, unsigned long long seed,
                                  float size_std, float std_lo, float std_hi,
                                  float temp, int latent_residual, void* stream) {
     if (B <= 0 || H <= 0) return cudaErrorInvalidValue;
+    if ((ACT && actions == nullptr) || (REW && rewards == nullptr)) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (err != cudaSuccess) return err;
     const int grid = (B + TB - 1) / TB;
     rollout_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-        z0, params, out, B, H, sample, seed, size_std, std_lo, std_hi, temp,
-        latent_residual);
+        z0, params, actions, out, rewards, B, H, sample, seed, size_std, std_lo,
+        std_hi, temp, latent_residual);
     return cudaGetLastError();
 }
 

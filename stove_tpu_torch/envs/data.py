@@ -1,8 +1,10 @@
 """In-memory corpora and window batches (counterpart of
 `stove_tpu/envs/data.py`, without storage).
 
-`generate` simulates and renders a batch of billiards sequences on the
-requested device and quantises the frames to uint8 like the JAX corpora.
+`generate` simulates and renders a batch of billiards or avoidance
+sequences on the requested device (avoidance with uniformly random
+per-step actions and the environment's rewards) and quantises the frames
+to uint8 like the JAX corpora.
 Nothing is written to disk: the training and test corpora are made anew
 from a seed.  `sample_windows` draws a training batch of windows on the
 corpus's device.
@@ -12,7 +14,7 @@ recorded *before* each step (the reference layout).
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,33 +26,52 @@ class Episode(NamedTuple):
     """One batch of trajectories (leading dims N, T)."""
     frames: torch.Tensor    # (N, T, img, img) uint8 or float32
     states: torch.Tensor    # (N, T, O, 4) x, y, vx, vy (arena coords)
-    actions: torch.Tensor   # (N, T) int64 (zeros: billiards has none)
+    actions: torch.Tensor   # (N, T) int64 (zeros without actions)
     rewards: torch.Tensor   # (N, T) float32
     radii: torch.Tensor     # (N, O) float32
 
 
-def simulate(cfg: Config, state: physics.EnvState, T: int) -> torch.Tensor:
-    """(N, T, O, 4) recorded states: frame t holds the state before step t."""
-    out = []
-    for _ in range(T):
-        out.append(torch.cat([state.pos, state.vel], -1))
-        state = physics.billiards_step(cfg, state)
-    return torch.stack(out, 1)
+def simulate(cfg: Config, state: physics.EnvState, actions: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step `state` with actions (N, T): the (N, T, O, 4) recorded states
+    (frame t holds the state before step t) and the (N, T) rewards of the
+    steps (`physics.env_step`)."""
+    states, rewards = [], []
+    for t in range(actions.shape[1]):
+        states.append(torch.cat([state.pos, state.vel], -1))
+        state, r = physics.env_step(cfg, state, actions[:, t])
+        rewards.append(r)
+    return torch.stack(states, 1), torch.stack(rewards, 1)
 
 
 def generate(cfg: Config, num: int, generator: Optional[torch.Generator],
              device: torch.device = torch.device("cpu")) -> Episode:
     """`num` sequences of cfg.seq_len frames from random initial states,
-    frames quantised to uint8."""
+    frames quantised to uint8 (data.py:45-69).  Avoidance draws uniform
+    actions from `generator` after the initial states; other tasks draw
+    none, so their corpora do not depend on the action draw."""
     state = physics.init_state(cfg, num, generator, device)
-    states = simulate(cfg, state, cfg.seq_len)
+    T = cfg.seq_len
+    if cfg.task == "avoidance":
+        actions = torch.randint(0, cfg.num_actions, (num, T),
+                                generator=generator).to(device)
+    else:
+        actions = torch.zeros((num, T), dtype=torch.long, device=device)
+    states, rewards = simulate(cfg, state, actions)
     frames = physics.render_sequence(cfg, states[..., :2], state.radii)
     frames = torch.round(frames * 255.0).to(torch.uint8)
-    N, T = states.shape[:2]
-    return Episode(frames, states,
-                   torch.zeros((N, T), dtype=torch.long, device=device),
-                   torch.zeros((N, T), dtype=torch.float32, device=device),
-                   state.radii)
+    return Episode(frames, states, actions, rewards, state.radii)
+
+
+def split(cfg: Config, name: str,
+          device: torch.device = torch.device("cpu")) -> Episode:
+    """The "train" (cfg.num_train sequences from cfg.seed) or "test"
+    (cfg.num_test from cfg.seed + 1) corpus: the Trainer and mode=eval
+    read the same test split, as the reference's `ensure_dataset` serves
+    both."""
+    num, seed = {"train": (cfg.num_train, cfg.seed),
+                 "test": (cfg.num_test, cfg.seed + 1)}[name]
+    return generate(cfg, num, torch.Generator().manual_seed(seed), device)
 
 
 def normalize_frames(frames: torch.Tensor) -> torch.Tensor:

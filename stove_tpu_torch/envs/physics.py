@@ -1,12 +1,15 @@
-"""Billiards physics and rendering (counterpart of
-`stove_tpu/envs/physics.py`, billiards only).
+"""Billiards and avoidance physics and rendering (counterpart of
+`stove_tpu/envs/physics.py`; gravity is not ported yet, ROADMAP.md).
 
 Everything is batched over a leading sequence axis N as plain tensor code:
 `EnvState` holds (N, O, 2) positions and velocities and (N, O) radii and
 masses.  O equal-radius balls move at constant speed in a square arena
 with elastic ball-ball and ball-wall collisions, resolved pair by pair in
-the JAX package's sequential order, with collision substepping.  Gravity
-and avoidance are not ported yet (ROADMAP.md).
+the JAX package's sequential order, with collision substepping.  In the
+avoidance task ball 0's velocity is set each step by one of 9 discrete
+actions (no-op and 8 compass directions), and the reward is
+`reward_contact` when ball 0 touched another ball during the step,
+`reward_free` otherwise.
 """
 
 from __future__ import annotations
@@ -26,22 +29,38 @@ class EnvState(NamedTuple):
     masses: torch.Tensor   # (N, O)
 
 
-def _require_billiards(cfg: Config) -> None:
-    if cfg.task != "billiards":
+# no-op + the 8 compass directions (E, NE, N, NW, W, SW, S, SE), computed
+# in float32 as the reference's table is (physics.py:46-50)
+_DIRS = torch.stack([torch.zeros(2)] + [
+    torch.stack([torch.cos(a), torch.sin(a)])
+    for a in (torch.tensor(i * math.pi / 4, dtype=torch.float32)
+              for i in range(8))])
+
+
+def action_directions() -> torch.Tensor:
+    """Unit direction per discrete action, (9, 2) float32; action 0 is
+    the no-op."""
+    return _DIRS
+
+
+def _require_ported(cfg: Config) -> None:
+    if cfg.task == "gravity":
         raise NotImplementedError(
-            f"not ported yet: the {cfg.task!r} environment (billiards only)")
+            "not ported yet: the 'gravity' environment (billiards and "
+            "avoidance only)")
 
 
 def init_state(cfg: Config, n: int, generator: Optional[torch.Generator],
                device: torch.device = torch.device("cpu")) -> EnvState:
-    """n random non-overlapping billiards states (physics.py:62-110).
+    """n random non-overlapping billiards or avoidance states
+    (physics.py:62-110; avoidance starts as billiards does).
 
     Uniform positions; 40 sweeps redraw every ball that overlaps another;
     8 projection passes push any remaining overlaps apart; uniform random
     headings at speed `init_speed`.  Draws come from `generator` on the
     CPU (the same numbers on every device), then move to `device`.
     """
-    _require_billiards(cfg)
+    _require_ported(cfg)
     O = cfg.num_obj
     lo, hi = cfg.ball_radius, cfg.arena_size - cfg.ball_radius
     r = torch.full((n, O), cfg.ball_radius, dtype=torch.float32)
@@ -146,6 +165,34 @@ def billiards_step_full(cfg: Config, state: EnvState
 
 def billiards_step(cfg: Config, state: EnvState) -> EnvState:
     return billiards_step_full(cfg, state)[0]
+
+
+def avoidance_step(cfg: Config, state: EnvState, action: torch.Tensor
+                   ) -> Tuple[EnvState, torch.Tensor]:
+    """Action-conditioned billiards (physics.py:235): ball 0's velocity is
+    set by `action` (N,) to its direction at `action_speed`, then one
+    billiards frame.  Returns (state, reward (N,) float32): `reward_contact`
+    where ball 0 touched another ball, `reward_free` elsewhere."""
+    vel = state.vel.clone()
+    vel[:, 0] = _DIRS.to(vel.device)[action.long()] * cfg.action_speed
+    new, touched = billiards_step_full(
+        cfg, EnvState(state.pos, vel, state.radii, state.masses))
+    return new, torch.where(touched[:, 0], cfg.reward_contact,
+                            cfg.reward_free).to(torch.float32)
+
+
+def env_step(cfg: Config, state: EnvState,
+             action: Optional[torch.Tensor] = None
+             ) -> Tuple[EnvState, torch.Tensor]:
+    """Dispatch on cfg.task (physics.py:251).  Returns (state, reward (N,)),
+    the reward zeros for billiards."""
+    _require_ported(cfg)
+    if cfg.task == "avoidance":
+        if action is None:
+            raise ValueError("the avoidance task needs an action")
+        return avoidance_step(cfg, state, action)
+    return billiards_step(cfg, state), torch.zeros(
+        state.pos.shape[0], dtype=torch.float32, device=state.pos.device)
 
 
 def render(cfg: Config, pos: torch.Tensor, radii: torch.Tensor

@@ -1,11 +1,13 @@
-"""Entry point: `python -m stove_tpu_torch.main [mode=train|eval] ...`.
+"""Entry point: `python -m stove_tpu_torch.main [mode=train|eval|mcts] ...`.
 
 Counterpart of `stove_tpu/main.py` for the modes ported so far.  Tokens
-are `key=value`: `mode=` (`train`, the default, or `eval`), `restore=` (a
-run directory written by the JAX trainer or the port's: its config.json
-and latest ckpt_*.npz), `preset=`, `device=` (`cuda`, the default, or
-`cpu`), and any Config field as an override (`scan_impl=pallas`,
-`likelihood_impl=pallas`, `spn_impl=pallas` select the port's kernels).
+are `key=value`: `mode=` (`train`, the default, `eval` or `mcts`),
+`restore=` (a run directory written by the JAX trainer or the port's: its
+config.json and latest ckpt_*.npz), `preset=`, `device=` (`cuda`, the
+default, or `cpu`), and any Config field as an override
+(`scan_impl=pallas`, `likelihood_impl=pallas`, `spn_impl=pallas` select
+the port's training kernels; every rollout on the card runs the rollout
+kernel).
 
 mode=train trains from scratch or, with restore=, resumes the run (params,
 Adam state, epoch) for the remaining epochs; it writes config.json,
@@ -13,8 +15,11 @@ spn_seeds.json, metrics.jsonl and checkpoints to
 `<run_dir>/<run_name>` only, never into the restored directory unless it
 is that one.  mode=eval generates the test corpus in memory from the
 config's seed (nothing is written), then prints the same keys as the JAX
-mode=eval: the conditioned-rollout metrics, the mean and sampled 80-step
-long-horizon metrics and the trivial baselines.
+mode=eval: the conditioned-rollout metrics (with the reward metrics for an
+action-conditioned model), the mean and sampled 80-step long-horizon
+metrics and the trivial baselines.  mode=mcts plans avoidance episodes from
+pixels with the restored model against the oracle and random policies
+(`planning/runner.py`) and prints their scores.
 """
 
 from __future__ import annotations
@@ -64,9 +69,7 @@ def run_eval(cfg: Config, device=None) -> Dict[str, torch.Tensor]:
         raise SystemExit("mode=eval requires restore=<run_dir>")
     dev = resolve_device(device)
     model = StoveModel.from_run(cfg.restore, cfg=cfg, device=dev)
-    test_ep = data_lib.generate(
-        cfg, max(cfg.eval_batch, 32),
-        torch.Generator().manual_seed(cfg.seed + 1), dev)
+    test_ep = data_lib.split(cfg, "test", dev)
     m = eval_lib.rollout_metrics(
         model, test_ep, torch.Generator().manual_seed(cfg.seed))
     m.update({f"longhorizon_{k}": v for k, v in
@@ -97,9 +100,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("final:", {k: v for k, v in result.items()
                          if not isinstance(v, list)})
         return 0
+    if mode == "mcts":
+        from stove_tpu_torch.planning import runner
+        print("planning:", runner.run_planning(cfg, device=device))
+        return 0
     if mode != "eval":
-        raise SystemExit(f"not ported yet: mode={mode} (the port runs "
-                         "mode=train and mode=eval)")
+        raise SystemExit(f"not ported yet: mode={mode} (viz, generate and "
+                         "profile are still to port)")
     for k, v in run_eval(cfg, device).items():
         print(f"{k}: {np.asarray(v.detach().cpu())}")
     return 0

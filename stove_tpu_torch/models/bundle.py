@@ -3,15 +3,17 @@
 
 Holds the config, the RAT-SPN region graphs (`specs`, from the run's
 permutation seeds), the parameter tree and the device, and exposes
-`init_params`, `elbo`, `supair_elbo`, `infer` and `rollout`.  On a CUDA
-device the rollout kernel's packed weights are prepared from `params`
-(`set_params` prepares them again after the weights change), so every
-rollout launch reuses them.
+`init_params`, `elbo`, `supair_elbo`, `infer`, `infer_each` and
+`rollout`.  On a CUDA device the rollout kernel's packed weights are
+prepared from `params` (`set_params` prepares them again after the weights
+change), so every rollout launch reuses them.  The port computes in
+float32 only: a config asking for `compute_dtype=bfloat16` raises here,
+where every entry point builds its model.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -30,6 +32,10 @@ class StoveModel:
         """`seeds`: the SPN permutation seeds (a fresh draw from cfg.seed
         when absent); `params`: the weights (a fresh `init_params` when
         absent)."""
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"not ported yet: compute_dtype={cfg.compute_dtype} (the "
+                "port computes in float32)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seeds = seeds if seeds is not None else \
@@ -89,6 +95,29 @@ class StoveModel:
               ) -> stove_lib.InferOut:
         return stove_lib.infer(self.params, self.cfg, frames, actions,
                                noise, generator)
+
+    def infer_each(self, frames: torch.Tensor,
+                   actions: Optional[torch.Tensor],
+                   generators: Sequence[torch.Generator]
+                   ) -> stove_lib.InferOut:
+        """Per-episode posteriors in one batched call (bundle.py:58):
+        frames (E, B, T, H, W), actions (E, B, T) or None, one generator
+        per episode.  Episode e's noise is drawn from generators[e] exactly
+        as `infer` draws it for a (B, T) window, so its rows equal an
+        `infer` call on that episode alone; every output gains a leading
+        episode axis."""
+        E, B, T = frames.shape[:3]
+        if len(generators) != E:
+            raise ValueError(f"{len(generators)} generators for {E} episodes")
+        noises = [stove_lib.draw_infer_noise(self.cfg, B, T, g, frames.device)
+                  for g in generators]
+        noise = stove_lib.InferNoise(*(torch.cat(parts, 0)
+                                       for parts in zip(*noises)))
+        flat = self.infer(frames.reshape(E * B, *frames.shape[2:]),
+                          None if actions is None
+                          else actions.reshape(E * B, T), noise)
+        return stove_lib.InferOut(*(x.reshape(E, B, *x.shape[1:])
+                                    for x in flat))
 
     def rollout(self, z0: torch.Tensor, actions: Optional[torch.Tensor],
                 horizon: int, generator: Optional[torch.Generator] = None,

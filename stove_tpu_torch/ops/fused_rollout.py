@@ -1,16 +1,19 @@
 """Fused whole-horizon rollout: one hand-written CUDA kernel for all H steps.
 
-Counterpart of `stove_tpu/ops/pallas_rollout.py::rollout_states`.  The
-kernel (`csrc/rollout.cu`) runs the action-free graph-net rollout of
-`models/dynamics.apply` for H steps in one launch, mean or sampled, with
-the state and every activation kept on chip; see the notes at the top of
-the source for its bound and design.
+Counterpart of `stove_tpu/ops/pallas_rollout.py::rollout_states` and
+`::rollout_act`.  The kernel (`csrc/rollout.cu`) runs the graph-net rollout
+of `models/dynamics.apply` for H steps in one launch, mean or sampled, with
+the state and every activation kept on chip; for an action-conditioned
+model it takes the per-step actions, and with a reward head it returns the
+per-step raw reward probabilities.  See the notes at the top of the source
+for its bound and design.
 
 * `load` compiles the source with plain `nvcc` for sm_90a into a shared
   library under `build/kernels/` (listed in .gitignore) at first use and
-  loads it with ctypes (`ops/_build.py`).  Shapes are compile-time (-D
-  flags from the config, `job`), so a library is built once per
-  (O, cl, h) and reused by content hash.
+  loads it with ctypes (`ops/_build.py`).  Shapes and heads are
+  compile-time (-D flags from the config, `job`), so a library is built
+  once per (O, cl, h, actions, reward head) and reused by content hash;
+  the action-free model's library has no action or reward code.
 * `prepare_params` packs the dynamics weights into the one flat f32 buffer
   the kernel reads (`param_layout` gives its order).
 * `launch_kernel` checks device, dtype, shape and contiguity, allocates
@@ -49,10 +52,23 @@ def _dout_padded(cfg: Config) -> int:
 def param_layout(cfg: Config) -> List[Tuple[str, Tuple[int, ...]]]:
     """(name, shape) of each segment of the packed buffer, in order.
 
-    Matches the OFF_* constants of csrc/rollout.cu.  Weights are (in, out):
-    the kernel reads W[k, n0:n0+4] as one float4.
+    Matches the OFF_* constants of csrc/dyn_core.cuh.  Weights are (in,
+    out): the kernel reads W[k, n0:n0+4] as one float4.  An
+    action-conditioned config adds embed[0]'s action rows; a reward head
+    adds both heads' first layers side by side as one (2h, 2h) matrix over
+    [s ; r], their contact-gap and min-distance rows, their second layers
+    and their last columns.
     """
     D, h, dp = cfg.full_state_dim, cfg.dyn_hidden, _dout_padded(cfg)
+    extra = []
+    if cfg.action_conditioned:
+        extra.append(("w_e0a", (cfg.num_actions, h)))
+    if cfg.reward_head:
+        extra += [("w_h0", (2 * h, 2 * h)), ("b_h0", (2 * h,)),
+                  ("w_hg", (2 * h,)), ("w_hd", (2 * h,)),
+                  ("w_rw1", (h, h)), ("b_rw1", (h,)),
+                  ("w_ra1", (h, h)), ("b_ra1", (h,)),
+                  ("w_h2", (2 * h,)), ("b_h2", (4,))]
     return [
         ("w_e0", (D, h)), ("b_e0", (h,)),
         ("w_e1", (h, h)), ("b_e1", (h,)),
@@ -65,26 +81,20 @@ def param_layout(cfg: Config) -> List[Tuple[str, Tuple[int, ...]]]:
         ("w_o0", (2 * h, h)), ("b_o0", (h,)),
         ("w_o1", (h, h)), ("b_o1", (h,)),
         ("w_o2", (h, dp)), ("b_o2", (dp,)),
-    ]
+    ] + extra
 
 
-def check_supported(cfg: Config, params: Dict) -> None:
-    """Raise for configurations the kernel does not implement."""
+def check_supported(cfg: Config, params: Dict, sample: bool = True) -> None:
+    """Raise for configurations the kernel does not implement.  The
+    open-loop std head only sets the sampled noise's std, so, as in the
+    reference (pallas_rollout.py:357), only a sampled rollout needs it."""
     if cfg.dyn_layers != 2:
         raise ValueError(f"fused rollout needs dyn_layers=2, got "
                          f"{cfg.dyn_layers}")
-    if cfg.action_conditioned:
+    if sample and cfg.open_loop_sigma and "open" in params:
         raise NotImplementedError(
-            "not ported yet: the action-conditioned rollout kernel "
-            "(pallas_rollout.rollout_act)")
-    if cfg.reward_head and "reward" in params:
-        raise NotImplementedError(
-            "not ported yet: the reward head inside the rollout kernel "
-            "(pallas_rollout.rollout_act)")
-    if cfg.open_loop_sigma and "open" in params:
-        raise NotImplementedError(
-            "not ported yet: the open-loop std head inside the rollout "
-            "kernel")
+            "not ported yet: the open-loop std head inside the sampled "
+            "rollout kernel")
     if cfg.dyn_hidden % 32 or _dout_padded(cfg) > cfg.dyn_hidden:
         raise ValueError("fused rollout needs dyn_hidden a multiple of 32 "
                          "and >= the padded output width")
@@ -99,10 +109,11 @@ def prepare_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
     matmul; the last relational layer into its h feature columns and its
     attention column; output layer 0 into self and relational halves,
     stacked along K to contract [s ; r] at once.  The last output layer is
-    zero-padded to a multiple of 64 columns.  The buffer lives on the
+    zero-padded to a multiple of 64 columns.  embed[0]'s action rows and
+    the reward heads follow (`param_layout`).  The buffer lives on the
     weights' device.
     """
-    check_supported(cfg, dyn_params)
+    check_supported(cfg, dyn_params, sample=False)
     return pack_params(dyn_params, cfg)
 
 
@@ -111,7 +122,7 @@ def pack_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
     posterior scan kernel (ops/fused_scan.py) reads the same buffer and
     checks what it supports itself."""
     p = dyn_params
-    h = cfg.dyn_hidden
+    h, D = cfg.dyn_hidden, cfg.full_state_dim
     w_rel0, w_rel2, b_rel2 = p["rel"][0]["w"], p["rel"][2]["w"], p["rel"][2]["b"]
     w_out0 = p["out"][0]["w"]
     w_o0s, w_o0r = w_out0[:h], w_out0[h:]
@@ -123,7 +134,7 @@ def pack_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
     b_ra = torch.zeros((4,), dtype=torch.float32, device=w_out0.device)
     b_ra[0] = b_rel2[-1]
     seg = {
-        "w_e0": p["embed"][0]["w"], "b_e0": p["embed"][0]["b"],
+        "w_e0": p["embed"][0]["w"][:D], "b_e0": p["embed"][0]["b"],
         "w_e1": p["embed"][1]["w"], "b_e1": p["embed"][1]["b"],
         "w_s0": p["self"][0]["w"], "b_s0": p["self"][0]["b"],
         "w_s1": p["self"][1]["w"], "b_s1": p["self"][1]["b"],
@@ -136,6 +147,22 @@ def pack_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
         "w_o1": p["out"][1]["w"], "b_o1": p["out"][1]["b"],
         "w_o2": w_o2, "b_o2": b_o2,
     }
+    if cfg.action_conditioned:
+        seg["w_e0a"] = p["embed"][0]["w"][D:]
+    if cfg.reward_head:
+        rw, ra = p["reward"], p["reward_att"]
+        b_h2 = torch.zeros((4,), dtype=torch.float32, device=w_out0.device)
+        b_h2[0], b_h2[1] = rw[2]["b"][0], ra[2]["b"][0]
+        seg.update({
+            "w_h0": torch.cat([rw[0]["w"][:2 * h], ra[0]["w"][:2 * h]], 1),
+            "b_h0": torch.cat([rw[0]["b"], ra[0]["b"]]),
+            "w_hg": torch.cat([rw[0]["w"][2 * h], ra[0]["w"][2 * h]]),
+            "w_hd": torch.cat([rw[0]["w"][2 * h + 1], ra[0]["w"][2 * h + 1]]),
+            "w_rw1": rw[1]["w"], "b_rw1": rw[1]["b"],
+            "w_ra1": ra[1]["w"], "b_ra1": ra[1]["b"],
+            "w_h2": torch.cat([rw[2]["w"][:, 0], ra[2]["w"][:, 0]]),
+            "b_h2": b_h2,
+        })
     parts = []
     for name, shape in param_layout(cfg):
         t = seg[name]
@@ -183,9 +210,15 @@ def rollout_states_reference(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def job(cfg: Config) -> _build.Job:
-    """(source, defines) of the rollout library for this config's shapes."""
-    return ("rollout.cu", (f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
-                           f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}"))
+    """(source, defines) of the rollout library for this config's shapes
+    and heads."""
+    defines = (f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
+               f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}")
+    if cfg.action_conditioned:
+        defines += ("-DSTOVE_ACT=1", f"-DSTOVE_NA={cfg.num_actions}")
+    if cfg.reward_head:
+        defines += ("-DSTOVE_REW=1",)
+    return ("rollout.cu", defines)
 
 
 def _setup(cfg: Config):
@@ -196,7 +229,8 @@ def _setup(cfg: Config):
         lib.stove_rollout_smem_bytes.argtypes = []
         lib.stove_rollout_launch.restype = ctypes.c_int
         lib.stove_rollout_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # z0, P, out
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # z0, P, actions
+            ctypes.c_void_p, ctypes.c_void_p,                    # out, rewards
             ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, H, sample
             ctypes.c_uint64,                                     # seed
             ctypes.c_float, ctypes.c_float, ctypes.c_float,      # size_std, lo, hi
@@ -208,7 +242,8 @@ def _setup(cfg: Config):
             raise RuntimeError(
                 f"kernel packs {lib.stove_rollout_param_count()} params, "
                 f"param_layout {expect}: csrc/dyn_core.cuh and "
-                f"fused_rollout.param_layout disagree")
+                f"fused_rollout.param_layout disagree (each of the action "
+                f"and reward variants has its own count)")
     return setup
 
 
@@ -219,10 +254,16 @@ def load(cfg: Config) -> ctypes.CDLL:
 
 
 def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
-                  horizon: int, sample: bool, seed: int) -> torch.Tensor:
-    """Check the inputs, allocate the output and launch the kernel once on
-    the current stream.  Takes CUDA tensors only.  `launch_kernel.launches`
-    counts the launches (a run sets it to 0 and reads it after)."""
+                  horizon: int, sample: bool, seed: int,
+                  actions: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs, allocate the outputs and launch the kernel once on
+    the current stream: (states (B, H, O, D), rewards (B, H)), the rewards
+    zeros without a reward head.  An action-conditioned config takes
+    `actions` (B, H) integers on z0's device (zeros when None, as
+    `dynamics.apply` does).  Takes CUDA tensors only.
+    `launch_kernel.launches` counts the launches (a run sets it to 0 and
+    reads it after)."""
     _build.check_device(z0, prepared)
     if z0.dtype != torch.float32 or prepared.dtype != torch.float32:
         raise TypeError("fused rollout takes float32 z0 and params")
@@ -235,8 +276,21 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
                          "device (use prepare_params)")
     if not (z0.is_contiguous() and prepared.is_contiguous()):
         raise ValueError("fused rollout needs contiguous z0 and params")
+    acts = None
+    if cfg.action_conditioned:
+        if actions is None:
+            actions = torch.zeros((B, horizon), dtype=torch.int32,
+                                  device=z0.device)
+        if tuple(actions.shape) != (B, horizon):
+            raise ValueError(f"actions shape {tuple(actions.shape)}, "
+                             f"expected {(B, horizon)}")
+        if actions.dtype.is_floating_point or actions.dtype == torch.bool:
+            raise TypeError("actions must be integers")
+        _build.check_device(z0, actions)
+        acts = actions.to(torch.int32).contiguous()
+    rewards = z0.new_zeros((B, max(horizon, 0)))
     if horizon <= 0 or B == 0:
-        return z0.new_empty((B, max(horizon, 0), O, D))
+        return z0.new_empty((B, max(horizon, 0), O, D)), rewards
     lib = load(cfg)
     if prepared.numel() != lib.stove_rollout_param_count():
         raise ValueError("prepared params have the wrong size for this "
@@ -246,13 +300,15 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
     lo, hi = cfg.min_dyn_std, cfg.max_dyn_std
     with torch.cuda.device(z0.device):
         err = lib.stove_rollout_launch(
-            z0.data_ptr(), prepared.data_ptr(), out.data_ptr(), B, horizon,
+            z0.data_ptr(), prepared.data_ptr(),
+            None if acts is None else acts.data_ptr(), out.data_ptr(),
+            rewards.data_ptr() if cfg.reward_head else None, B, horizon,
             int(sample), seed, cfg.size_std, lo, hi, cfg.rollout_sigma_temp,
             int(cfg.latent_residual), _build.stream_of(z0))
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
     launch_kernel.launches += 1
-    return out
+    return out, rewards
 
 
 launch_kernel.launches = 0
@@ -266,19 +322,19 @@ def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
     """The one device dispatch of the rollout: (states, rewards).
 
     z0: (B, O, 6+cl) f32 → states (B, horizon, O, 6+cl), rewards
-    (B, horizon).  On a CUDA tensor this launches the kernel (building it
-    at first use) and raises if it cannot: configurations it does not
-    implement (actions, reward or open-loop heads) raise in
-    `check_supported`, so its rewards are zeros.  `prepared` is
+    (B, horizon) (the reward head's raw probabilities; zeros without one).
+    actions: (B, horizon) integers, read by an action-conditioned config.
+    On a CUDA tensor this launches the kernel (building it at first use)
+    and raises if it cannot (`check_supported`).  `prepared` is
     `prepare_params(dyn_params, cfg)` cached by the caller (computed here
     when absent); the sampled kernel draws its noise in-kernel from a seed
     taken from `generator`.  On a CPU tensor it runs
-    `rollout_states_reference` with `actions` and with standard normals
-    drawn from `generator`.
+    `rollout_states_reference` with standard normals drawn from
+    `generator`.
     """
     B = z0.shape[0]
     if z0.device.type == "cuda":
-        check_supported(cfg, dyn_params)
+        check_supported(cfg, dyn_params, sample)
         if prepared is None:
             prepared = prepare_params(dyn_params, cfg)
         seed = 0
@@ -286,8 +342,8 @@ def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
             seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                                      device=generator.device
                                      if generator is not None else "cpu"))
-        states = launch_kernel(prepared, cfg, z0, horizon, sample, seed)
-        return states, z0.new_zeros((B, horizon))
+        return launch_kernel(prepared, cfg, z0, horizon, sample, seed,
+                             actions)
     if z0.device.type != "cpu":
         raise ValueError(f"fused rollout runs on cuda or cpu, not "
                          f"{z0.device}")
@@ -303,7 +359,7 @@ def rollout_states(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
                    horizon: int, sample: bool = True,
                    generator: Optional[torch.Generator] = None,
                    prepared: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Counterpart of `pallas_rollout.rollout_states`: the action-free
-    rollout's states (B, horizon, O, 6+cl), through `rollout`."""
+    """Counterpart of `pallas_rollout.rollout_states`: the rollout's states
+    (B, horizon, O, 6+cl) without actions, through `rollout`."""
     return rollout(dyn_params, cfg, z0, horizon, sample, generator,
                    prepared)[0]

@@ -1,11 +1,14 @@
-"""Evaluation: conditioned rollout position error, long-horizon stability
-and trivial baselines (counterpart of `stove_tpu/train/evaluate.py`).
+"""Evaluation: conditioned rollout position error, reward accuracy,
+long-horizon stability and trivial baselines (counterpart of
+`stove_tpu/train/evaluate.py`).
 
 Protocol: condition the posterior on `t_cond` frames, roll the dynamics
-forward from the last posterior mean, match predicted slots to ground
-truth once at the handoff, report per-step position MSE in [0, 1] image
-units.  Each function takes a `torch.Generator` for its noise; `noise`
-(an `InferNoise`) replaces the posterior's draws, as the parity tests do.
+forward from the last posterior mean (with the episode's actions), match
+predicted slots to ground truth once at the handoff, report per-step
+position MSE in [0, 1] image units; for an action-conditioned model also
+the predicted rewards' error and ROC-AUC against the true rewards.  Each
+function takes a `torch.Generator` for its noise; `noise` (an
+`InferNoise`) replaces the posterior's draws, as the parity tests do.
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ def rollout_metrics(model: StoveModel, ep: Episode,
     inf = model.infer(frames, actions[:, :t_cond], noise, generator)
     z_last = inf.z_mean[:, -1]
     roll_actions = actions[:, t_cond - 1: t_cond - 1 + t_pred]
-    states, _ = model.rollout(z_last, roll_actions, t_pred, generator,
-                              sample=False)
+    states, rewards = model.rollout(z_last, roll_actions, t_pred, generator,
+                                    sample=False)
     pred = _model_pos_to_01(states[..., POS])                  # (B, T, O, 2)
     last_inferred = _model_pos_to_01(inf.pos_mean[:, -1])      # (B, O, 2)
 
@@ -64,7 +67,7 @@ def rollout_metrics(model: StoveModel, ep: Episode,
                 - ep.states[:B, t_cond - 2, :, :2]) / cfg.arena_size
     pred_vel = matching.apply_permutation(
         inf.z_mean[:, -1, :, 4:6] * 0.5, perm)
-    return {
+    out = {
         "mse_per_step": mse_per_step,
         "mse_mean": torch.mean(mse_per_step),
         "mse_final": mse_per_step[-1],
@@ -73,6 +76,38 @@ def rollout_metrics(model: StoveModel, ep: Episode,
              - true_handoff) ** 2, -1)),
         "handoff_vel_rms": torch.sqrt(torch.mean((pred_vel - true_vel) ** 2)),
     }
+    if cfg.action_conditioned:
+        # the open-loop reward predictions the planner consumes: their
+        # error, their AUC, and the AUC at each rollout depth
+        true_r = ep.rewards[:B, t_cond - 1: t_cond - 1 + t_pred]
+        out["reward_mae"] = torch.mean(torch.abs(rewards - true_r))
+        out["reward_auc"] = binary_auc(rewards.reshape(-1),
+                                       true_r.reshape(-1))
+        out["reward_auc_per_step"] = torch.stack(
+            [binary_auc(rewards[:, k], true_r[:, k])
+             for k in range(rewards.shape[1])])
+    return out
+
+
+def binary_auc(score: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """ROC-AUC by the Mann-Whitney rank statistic (label 1 = positive;
+    evaluate.py:98).  Ties get midranks; NaN when one class is absent.
+    Ranks and sums in float64, the result float32."""
+    n = score.shape[0]
+    order = torch.argsort(score)
+    sorted_scores = score[order].contiguous()
+    start = torch.searchsorted(sorted_scores, sorted_scores, right=False)
+    end = torch.searchsorted(sorted_scores, sorted_scores, right=True)
+    mid = 0.5 * (start + 1 + end).to(torch.float64)
+    ranks = torch.zeros(n, dtype=torch.float64, device=score.device)
+    ranks[order] = mid
+    pos = label > 0.5
+    n_pos = pos.sum().to(torch.float64)
+    n_neg = n - n_pos
+    auc = ((torch.sum(torch.where(pos, ranks, 0.0)) - n_pos * (n_pos + 1) / 2)
+           / (n_pos * n_neg))
+    nan = torch.full_like(auc, float("nan"))
+    return torch.where((n_pos > 0) & (n_neg > 0), auc, nan).to(torch.float32)
 
 
 def baseline_metrics(cfg, ep: Episode, t_cond: Optional[int] = None,

@@ -168,11 +168,8 @@ class Trainer:
         self.logger = MetricsLogger(None if cfg.nolog else self.run_dir)
 
         dev = self.device
-        self.train_ep = data_lib.generate(
-            cfg, cfg.num_train, torch.Generator().manual_seed(cfg.seed), dev)
-        self.test_ep = data_lib.generate(
-            cfg, cfg.num_test, torch.Generator().manual_seed(cfg.seed + 1),
-            dev)
+        self.train_ep = data_lib.split(cfg, "train", dev)
+        self.test_ep = data_lib.split(cfg, "test", dev)
         if (cfg.action_conditioned and cfg.reward_balanced_loss
                 and cfg.reward_pos_rate == 0.0):
             rate = float(torch.mean(self.train_ep.rewards))

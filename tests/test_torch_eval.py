@@ -96,7 +96,7 @@ def test_main_eval_on_cpu_prints_the_jax_keys(capsys):
 
 
 def test_other_modes_are_not_ported():
-    for mode in ("mcts", "viz", "generate", "profile"):
+    for mode in ("viz", "generate", "profile"):
         with pytest.raises(SystemExit, match="not ported yet"):
             tmain.main([f"restore={RUN}", f"mode={mode}", "device=cpu"])
 
