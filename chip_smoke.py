@@ -1,16 +1,21 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100: `python3 chip_smoke.py`.
 
 Builds the port's four CUDA kernel sources from the checkout (one nvcc per
-library, all at once; the rollout source twice, for the action-free and
-the action-conditioned model), holds each kernel against its plain
-PyTorch version on the card, runs `mode=eval` of the trained 3-ball
-billiards model (ckpts/r4rp_bill_s32, full width) and STOVE training at
-full width through the port's entry points, resumes the trained run
-through the kernels, times the kernels and the training step, then runs
-`mode=eval` and MCTS planning (`mode=mcts`) of the trained
-action-conditioned avoidance model (ckpts/r4a_dense_s2, full width)
-through the action-conditioned rollout kernel.  One line per phase, with
-the seconds since start:
+library, all at once: the rollout source for the action-free model, the
+action-conditioned one, and each of them with the open-loop std head; the
+scan source per velocity mode and with actions and the reward head),
+holds each kernel against its plain PyTorch version on the card, runs
+`mode=eval` of the trained 3-ball billiards model (ckpts/r4rp_bill_s32,
+full width) and STOVE training at full width through the port's entry
+points, resumes the trained run through the kernels, times the kernels
+and the training step, then runs `mode=eval` and MCTS planning
+(`mode=mcts`) of the trained action-conditioned avoidance model
+(ckpts/r4a_dense_s2, full width) through the action-conditioned rollout
+kernel, trains that model from scratch and resumes it through the scan
+kernel with actions and the reward head, and runs `mode=eval` and resumed
+training of the trained gravity model (ckpts/r4rp_grav_s32, full width)
+through the rollout kernel's open-loop std head.  One line per phase,
+with the seconds since start:
 
   (0) device      card name and power limit (nvidia-smi); TF32 off
   (1) build       nvcc of every kernel library: seconds, registers, smem
@@ -84,6 +89,54 @@ the seconds since start:
                   (B=576 H=10) and step (B=576 H=1), at the checkpoint's own
                   leaf (B=360 H=10) and at B=16384 H=92 sampled (CUDA
                   events), beside its bound and its plain version
+  (17) scan-act   scan kernel with actions and the reward head vs plain at
+                  B=256, T2=10: r4a_dense_s2 weights, posterior inputs of
+                  rendered avoidance frames, their actions, pre-drawn eps;
+                  z, z_mean within 1e-4 of the float32 and float64 plain
+                  versions, kl within 2e-5 relative, rewards within 1e-4 and
+                  spanning both classes; the same for the gravity model's
+                  window (B=256, T2=14)
+  (18) avoid-train preset=stove_avoidance from scratch at full width (only
+                  the corpus cut): 2 warm-up + 3 STOVE steps through the
+                  scan and likelihood kernels, every loss finite (the reward
+                  and overshoot-reward losses too), launches > 0; one
+                  batch's gradients kernel vs plain path to phase (9)'s
+                  limits, the reward heads' and action rows' nonzero
+  (19) avoid-resume restore=ckpts/r4a_dense_s2 mode=train for 20 steps
+                  through the kernels: mean elbo, kl and reward_loss inside
+                  AVOID_RESUME_BAND (the JAX package's float32 values at
+                  those weights on the port's corpus); nothing written under
+                  ckpts/
+  (20) open-sampled the sampled rollout with the open-loop std head,
+                  r4rp_grav_s32 weights, z0 from the posterior of rendered
+                  gravity frames: eps recovered at H=1 (>= 1e6 draws) with
+                  rollout_sigma_temp * std_open to phase (3)'s limits; the
+                  same normals through the library without the head give
+                  the injected std, within 1e-2 relative of the plain
+                  head's; H=92 dispersion ratio kernel/plain in [0.9, 1.1];
+                  the model's mean rollout by phase (2)'s criterion; the
+                  library with actions, reward head and open head (no
+                  committed run has it: random open-head weights on
+                  r4a_dense_s2) at B=576, H=10, sampled: every step's eps
+                  recovered to phase (3)'s limits, rewards within 1e-4
+  (21) grav-eval  mode=eval of ckpts/r4rp_grav_s32 on the card (launches of
+                  the open-head library, TF32 off, mse_final below the
+                  constant-velocity baseline), again with the plain rollout
+                  (phase (4)'s limits); mse_final, detect_mse and the mean
+                  80-step speed_ratio inside GRAV_EVAL_BAND; the sampled
+                  80-step speed_ratio and frac_in_frame beside the plain
+                  path's, within the range of 8 plain draws widened by its
+                  width; launches by shape
+  (22) grav-train restore=ckpts/r4rp_grav_s32 mode=train from step 5200, 20
+                  steps through the kernels and the Trainer's evaluation
+                  (eval_every=1: its sampled 80-step rollouts launch the
+                  open-head library): mean elbo, kl, overshoot and
+                  open_sigma_nll inside GRAV_RESUME_BAND; nothing written
+                  under ckpts/
+  (23) timing4    the scan kernel at (256, 10) with actions and the reward
+                  head and at (256, 14) for gravity, the open-head sampled
+                  rollout at B=16384, H=92 (CUDA events), each beside its
+                  bound and plain version; the launches of each new path
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernel table (JSON), the card's name and power
@@ -104,6 +157,7 @@ import time
 T0 = time.perf_counter()
 RUN = "ckpts/r4rp_bill_s32"
 AVOID = "ckpts/r4a_dense_s2"
+GRAV = "ckpts/r4rp_grav_s32"
 # mode=eval of AVOID on the card must land here: the range of the JAX
 # package's float32 metrics on the port's test corpus over the posterior
 # draws of jax.random.key(0..31), widened by half its width on each side
@@ -112,6 +166,23 @@ AVOID = "ckpts/r4a_dense_s2"
 # the JAX package under the same draw, test_eval_matches_jax_on_its_noise)
 AVOID_BAND = {"mse_final": (0.0086, 0.0129), "detect_mse": (2.14e-4, 2.37e-4),
               "reward_auc": (0.861, 0.914)}
+# mode=eval of GRAV on the card (phase (21)) and its 20 resumed steps
+# (phase (22)), and the 20 resumed steps of AVOID (phase (19)), must land
+# here: the range of the JAX package's float32 values at the restored
+# weights on the port's corpora, widened by half its width on each side --
+# mode=eval's metrics over the posterior draws of jax.random.key(0..15),
+# the ELBO terms over 8 batches of 32 training windows under JAX's noise
+# (tests/test_torch_gravity_eval.py, tests/test_torch_gravity.py and
+# tests/test_torch_avoidance_train.py recompute the draws and check these
+# bands; the port equals the JAX package under the same draws).
+AVOID_RESUME_BAND = {"elbo": (868.8, 883.7), "kl": (-9.08, -7.48),
+                     "reward_loss": (0.134, 0.291)}
+GRAV_EVAL_BAND = {"mse_final": (0.0044, 0.0080),
+                  "detect_mse": (2.63e-4, 3.44e-4),
+                  "longhorizon_speed_ratio": (0.971, 1.075)}
+GRAV_RESUME_BAND = {"elbo": (1110.0, 1163.0), "kl": (-21.6, -8.0),
+                    "overshoot_loss": (0.088, 0.171),
+                    "open_sigma_nll": (-56.7, 53.2)}
 BUDGET_S = 240.0          # start the optional B=65536 timing only before this
 
 
@@ -132,18 +203,20 @@ def smi() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def macs_per_frame(cfg) -> int:
+def macs_per_frame(cfg, open_head: bool = False) -> int:
     """Multiply-adds of one dynamics step for one sample (all objects), as
     the kernel computes them: embed, self, receiver|sender, the relational
     MLP over O(O-1) ordered pairs, the output MLP (padded last layer
     counted at its true width); with a reward head, its two heads per
     object: [s ; r] -> h, h -> h, h -> 1 (the gap and distance rows are
-    elementwise)."""
+    elementwise); with the open-loop std head, [s ; r] -> h -> 4 + cl."""
     O, h, D, cl = cfg.num_obj, cfg.dyn_hidden, cfg.full_state_dim, cfg.cl
     per_obj = D * h + h * h + 2 * h * h + 2 * h * h + 2 * h * h + h * h \
         + h * (6 + 2 * cl)
     if cfg.reward_head:
         per_obj += 2 * (2 * h * h + h * h + h)
+    if open_head:
+        per_obj += 2 * h * h + h * (4 + cl)
     per_pair = h * h + h * (h + 1)
     return O * per_obj + O * (O - 1) * per_pair
 
@@ -196,11 +269,15 @@ def main() -> int:
     cfg = ckpt_lib.load_config(RUN)
     model = StoveModel.from_run(RUN, device=dev)
     sspecs = model.specs.supair
-    jobs = [fr.job(cfg), fr.job(ckpt_lib.load_config(AVOID)), fscan.job(cfg),
+    acfg = ckpt_lib.load_config(AVOID)
+    gcfg = ckpt_lib.load_config(GRAV)
+    ocfg = acfg.with_overrides(open_loop_sigma=True)
+    jobs = [fr.job(cfg), fr.job(acfg), fscan.job(cfg),
             fscan.job(cfg.with_overrides(velocity_obs_full_std=False)),
             fscan.job(cfg.with_overrides(velocity_obs="filtered")),
             fspn.job(sspecs.obj), fspn.job(sspecs.bg),
-            flik.job(cfg, sspecs)]
+            flik.job(cfg, sspecs), fscan.job(acfg), fscan.job(gcfg),
+            fr.job(gcfg, True), fr.job(ocfg, True)]
     t = time.perf_counter()
     paths = _build.build(jobs)
     phase("build", f"{len(jobs)} libraries in {time.perf_counter() - t:.1f} s")
@@ -211,11 +288,16 @@ def main() -> int:
     lib = fr.load(cfg)
     phase("build", f"smem per block: rollout {lib.stove_rollout_smem_bytes()} "
           f"B (with actions and reward head "
-          f"{fr.load(ckpt_lib.load_config(AVOID)).stove_rollout_smem_bytes()}"
+          f"{fr.load(acfg).stove_rollout_smem_bytes()}"
           f" B), scan {fscan.load(cfg).stove_scan_smem_bytes()} B, spn obj "
           f"{fspn.load(sspecs.obj).stove_spn_smem_bytes()} B / bg "
           f"{fspn.load(sspecs.bg).stove_spn_smem_bytes()} B, likelihood "
-          f"{flik.load(cfg, sspecs).stove_lik_smem_bytes()} B")
+          f"{flik.load(cfg, sspecs).stove_lik_smem_bytes()} B; scan with "
+          f"actions and reward head {fscan.load(acfg).stove_scan_smem_bytes()}"
+          f" B, rollout with the open-loop head "
+          f"{fr.load(gcfg, True).stove_rollout_smem_bytes()} B (with actions"
+          f" and reward head too "
+          f"{fr.load(ocfg, True).stove_rollout_smem_bytes()} B)")
 
     # ---- (2) mean path, z0 from the posterior of rendered frames
     dyn = model.params["dynamics"]
@@ -232,46 +314,7 @@ def main() -> int:
     phase("mean", "posterior states, max |z| by rows: " + ", ".join(
         f"{k} {z_post[..., a:b].abs().max().item():.3f}"
         for k, (a, b) in groups.items()))
-    dyn64 = ckpt_lib.params_from_numpy(dyn, dev, torch.float64)
-    max_err = 0.0
-    for B, H in ((256, 8), (100, 8), (32, 80)):
-        z0 = z_post[:B].contiguous()
-        got = fr.rollout_states(dyn, cfg, z0, H, sample=False,
-                                prepared=model.prepared)
-        ref, _ = fr.rollout_states_reference(dyn, cfg, z0, H)
-        ref64, _ = fr.rollout_states_reference(dyn64, cfg, z0.double(), H)
-        torch.cuda.synchronize()
-        # Steps 1-8 are held to 1e-4, against the plain version in float32
-        # (cuBLAS) and evaluated in float64 (the kernel's own error).  The
-        # latent rows reach |15| and the trained map amplifies float32
-        # rounding ~1.4x a step, so two float32 evaluations summing in
-        # different orders drift apart.  Over a whole longer horizon the
-        # kernel's distance from the float64 version is held to at most
-        # twice the float32 plain version's own distance from it.
-        err8 = (got[:, :8] - ref[:, :8]).abs().max().item()
-        own8 = (got[:, :8].double() - ref64[:, :8]).abs().max().item()
-        max_err = max(max_err, err8)
-        per_step = (got[:, :8] - ref[:, :8]).abs().amax(dim=(0, 2, 3))
-        phase("mean", f"B={B} H={H}: max |kernel - plain| over steps 1-8: "
-              f"{err8:.3e} vs float32 plain, {own8:.3e} vs float64 plain; "
-              f"by step vs float32: "
-              + " ".join(f"{e:.1e}" for e in per_step.tolist()))
-        check(err8 <= 1e-4 and own8 <= 1e-4,
-              f"mean rollout error {err8} / {own8} > 1e-4 at B={B}")
-        if H > 8:
-            k64 = (got.double() - ref64).abs().amax(dim=(0, 2, 3))
-            p64 = (ref.double() - ref64).abs().amax(dim=(0, 2, 3))
-            k_all, p_all = k64.max().item(), p64.max().item()
-            phase("mean", f"B={B} H={H}: max distance from float64 plain "
-                  f"over all {H} steps: kernel {k_all:.3e}, float32 plain "
-                  f"{p_all:.3e} (ratio {k_all / max(p_all, 1e-30):.3f}); "
-                  "by step 10, 20, ...: kernel " + " ".join(
-                      f"{e:.1e}" for e in k64[9::10].tolist())
-                  + "; float32 plain " + " ".join(
-                      f"{e:.1e}" for e in p64[9::10].tolist()))
-            check(k_all <= 2 * p_all,
-                  f"kernel's {H}-step distance from float64 {k_all} > 2x "
-                  f"the float32 plain version's {p_all}")
+    max_err = hold_mean_rollout("mean", dyn, cfg, z_post, model.prepared)
 
     # ---- (3) sampled path, in distribution
     z0 = z_post
@@ -386,10 +429,47 @@ def main() -> int:
             "launches": launch, "max_abs_err": err, "ms": tr[key + "_ms"],
             "plain_ms": tr[key + "_plain_ms"], "bound_ms": ms,
             "bound_by": by, "library_ms": None, "shape": shape})
+    four = fourth_slice(card, dev)
+    ti = four["timing"]
+    for name, src, rep, key, err, launch, shape in (
+            ("scan_fused[actions, reward head]",
+             "stove_tpu_torch/csrc/scan.cu", "stove_tpu/ops/pallas_scan.py:214",
+             "scan_avoid", four["scan_act_err"],
+             four["launches_avoid_train"]["scan"]
+             + four["launches_avoid_resume"]["scan"], {"B": 256, "T2": 10}),
+            ("scan_fused[gravity window]", "stove_tpu_torch/csrc/scan.cu",
+             "stove_tpu/ops/pallas_scan.py:214", "scan_grav",
+             four["scan_grav_err"], four["launches_grav_train"]["scan"],
+             {"B": 256, "T2": 14}),
+            ("rollout_states[open-loop std head]",
+             "stove_tpu_torch/csrc/rollout.cu",
+             "stove_tpu/ops/pallas_rollout.py:433", "open",
+             four["open_std_err"], four["open_launches_eval"]
+             + four["open_launches_train"],
+             {"B": 16384, "H": 92, "sample": True})):
+        k_ms, p_ms, b_ms, by = ti[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launch, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "shape": shape})
+    kernels[5]["max_abs_err_rewards"] = four["scan_act_rew_err"]
+    kernels[1]["open_head_variant"] = {
+        "defines": "-DSTOVE_ACT=1 -DSTOVE_NA=9 -DSTOVE_REW=1 -DSTOVE_OPEN=1",
+        "launches": 1, "main_path": None, "shape": {"B": 576, "H": 10,
+                                                     "sample": True},
+        "max_abs_err_rewards": four["act_open_rew_err"]}
+    kernels[4]["launches_by_path"] = {
+        "avoid_train": four["launches_avoid_train"]["likelihood"],
+        "avoid_resume": four["launches_avoid_resume"]["likelihood"],
+        "grav_train": four["launches_grav_train"]["likelihood"]}
     print(json.dumps({"kernels": kernels, "train_step_ms": {
         k: tr[f"step_{k}"] for k in ("kernels", "plain")},
         "resume": tr["resume"], "avoidance_eval": act["eval"],
-        "planning": act["plan"]}))
+        "planning": act["plan"], "avoidance_resume": four["avoid_resume"],
+        "gravity_eval": four["grav_eval"],
+        "gravity_eval_sampled": four["grav_eval_sampled"],
+        "gravity_resume": four["grav_resume"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -661,7 +741,7 @@ def training_slice(card: str, dev, cfg, model) -> dict:
                     dyn["out"][-1]["w"].shape,
                     generator=torch.Generator().manual_seed(9)).to(dev)
             args = [a[:nb] for a in scan_args]
-            z, zm, kl = fscan.launch_kernel(fr.pack_params(dyn, c2), c2,
+            z, zm, kl, _ = fscan.launch_kernel(fr.pack_params(dyn, c2), c2,
                                             *args, eps[:nb])
             rz, rzm, rkl, _ = fscan.scan_reference(dyn, c2, *args, acts[:nb],
                                                    eps[:nb])
@@ -1056,30 +1136,12 @@ def avoidance_slice(card: str, dev) -> dict:
 
     real_launch = fr.launch_kernel
 
-    @contextlib.contextmanager
-    def recording(shapes):
-        """Count the launches by (B, H, sampled) while the block runs.  The
-        wrapper stands in for the module's launch_kernel, so the launch
-        counter that launch_kernel increments is the wrapper's while it
-        stands, and is handed back after."""
-        def recorded(prepared, c, z0, horizon, sample, *a, **k):
-            key = (z0.shape[0], horizon, bool(sample))
-            shapes[key] = shapes.get(key, 0) + 1
-            return real_launch(prepared, c, z0, horizon, sample, *a, **k)
-        recorded.launches = real_launch.launches
-        fr.launch_kernel = recorded
-        try:
-            yield
-        finally:
-            fr.launch_kernel = real_launch
-            real_launch.launches = recorded.launches
-
     def hold_launched(shapes, name):
         """Hold every mean shape a path launched that (12) did not; the
         sampled ones are held in distribution by (13)."""
-        phase(name, "rollout launches by (B, H, sampled): " + ", ".join(
-            f"{k}: {v}" for k, v in sorted(shapes.items())))
-        for B, H, smp in sorted(shapes):
+        phase(name, "rollout launches by (B, H, sampled, open head): "
+              + ", ".join(f"{k}: {v}" for k, v in sorted(shapes.items())))
+        for B, H, smp, _ in sorted(shapes):
             if not smp and (B, H) not in held:
                 hold(B, H, name)
 
@@ -1105,7 +1167,7 @@ def avoidance_slice(card: str, dev) -> dict:
     eval_shapes = {}
     real_launch.launches = 0
     t = time.perf_counter()
-    with recording(eval_shapes):
+    with recording_rollouts(eval_shapes):
         m = entry.run_eval(ecfg, edev)
         torch.cuda.synchronize()
     eval_s = time.perf_counter() - t
@@ -1142,7 +1204,7 @@ def avoidance_slice(card: str, dev) -> dict:
     real_launch.launches = 0
     t = time.perf_counter()
     try:
-        with recording(shapes):
+        with recording_rollouts(shapes):
             res = runner.run_planning(pcfg, device=pdev)
             torch.cuda.synchronize()
     finally:
@@ -1222,7 +1284,7 @@ def avoidance_slice(card: str, dev) -> dict:
         "launches_by_shape": {
             f"{path} B={b} H={h}{' sampled' if smp else ''}": v
             for path, d in (("eval", eval_shapes), ("plan", shapes))
-            for (b, h, smp), v in sorted(d.items())},
+            for (b, h, smp, _), v in sorted(d.items())},
         "max_abs_err_rewards": errs[1],
         "step_ms": times[step][0], "step_plain_ms": times[step][1],
         "step_bound_ms": times[step][2],
@@ -1233,6 +1295,618 @@ def avoidance_slice(card: str, dev) -> dict:
         "bound_ms_b16384_h92": times[(16384, 92)][2]}
     return {"entry": entry_, "plan": plan,
             "eval": {k: m[k].item() for k in AVOID_BAND}}
+
+
+# ---------------------------------------------------------------------------
+# the fourth slice: avoidance training through the scan kernel with actions
+# and the reward head; the gravity model through the rollout kernel's
+# open-loop std head
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_rollouts(shapes):
+    """Count the rollout launches by (B, H, sampled, open-loop head) while
+    the block runs.  The wrapper stands in for fused_rollout.launch_kernel;
+    the launch counter that launch_kernel increments is the wrapper's while
+    it stands, and is handed back after."""
+    from stove_tpu_torch.ops import fused_rollout as fr
+    real = fr.launch_kernel
+
+    def recorded(prepared, c, z0, horizon, sample, seed, actions=None,
+                 open_head=False):
+        key = (z0.shape[0], horizon, bool(sample), bool(open_head))
+        shapes[key] = shapes.get(key, 0) + 1
+        return real(prepared, c, z0, horizon, sample, seed, actions,
+                    open_head)
+    recorded.launches = real.launches
+    fr.launch_kernel = recorded
+    try:
+        yield
+    finally:
+        fr.launch_kernel = real
+        real.launches = recorded.launches
+
+
+def scan_inputs(model, cfg, B: int, gen, dev):
+    """The scan kernel's inputs on B rendered windows of the model's task,
+    as `stove.infer` hands them over: (z1, carry means, carry stds, encoder
+    box means, stds), the actions a_{t-1} (B, T2) and pre-drawn eps."""
+    import torch
+    from stove_tpu_torch.envs import data as data_lib
+    from stove_tpu_torch.models import stove as stove_lib
+    from stove_tpu_torch.models import supair as sup_lib
+    T, O = cfg.window, cfg.num_obj
+    ep = data_lib.generate(cfg.with_overrides(seq_len=T), B, gen, dev)
+    frames = data_lib.normalize_frames(ep.frames)
+    with torch.no_grad():
+        inf = model.infer(frames, ep.actions if cfg.action_conditioned
+                          else None, generator=gen)
+        mean, std = sup_lib.encode(model.params["supair"], cfg,
+                                   frames.reshape(B * T, cfg.img_size,
+                                                  cfg.img_size))
+        mean, std = mean.reshape(B, T, O, 4), std.reshape(B, T, O, 4)
+        m1, s1 = stove_lib.align_slots(mean[:, 0, :, 2:4], mean[:, 1, :, 2:4],
+                                       mean[:, 1], std[:, 1])
+    args = [inf.z[:, 1].contiguous(), m1[..., 2:4].contiguous(),
+            s1[..., 2:4].contiguous(), mean[:, 2:].contiguous(),
+            std[:, 2:].contiguous()]
+    acts = ep.actions[:, 1:T - 1].contiguous()
+    eps = torch.randn((B, T - 2, O, cfg.full_state_dim),
+                      generator=gen).to(dev)
+    return args, acts, eps
+
+
+def hold_scan(name, dyn, cfg, args, acts, eps, lim=1e-4):
+    """The scan kernel against the plain version in float32 and float64 on
+    the same inputs: z and z_mean within `lim` of both over every step,
+    kl within 2e-5 relative (phase (8)'s limits), rewards within 1e-4 of
+    both.  Returns (max z error vs float32, max reward error, the
+    kernel's rewards)."""
+    import torch
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.ops import fused_scan as fscan
+    from stove_tpu_torch.train import checkpoint as ckpt_lib
+    dev = eps.device
+    z, zm, kl, rew = fscan.launch_kernel(fr.pack_params(dyn, cfg), cfg, *args,
+                                         eps, acts)
+    rz, rzm, rkl, rrew = fscan.scan_reference(dyn, cfg, *args, acts, eps)
+    d64 = ckpt_lib.params_from_numpy(dyn, dev, torch.float64)
+    qz, qzm, qkl, qrew = fscan.scan_reference(
+        d64, cfg, *[a.double() for a in args], acts, eps.double())
+    torch.cuda.synchronize()
+    dist = lambda a, b: (a.double() - b.double()).abs().max().item()  # noqa
+    ez = max(dist(z, rz), dist(zm, rzm))
+    ez64 = max(dist(z, qz), dist(zm, qzm))
+    own64 = max(dist(rz, qz), dist(rzm, qzm))
+    ekl = ((kl - rkl).abs() / rkl.abs().clamp_min(1.0)).max().item()
+    er, er64 = dist(rew, rrew), dist(rew, qrew)
+    phase(name, f"B={z.shape[0]} T2={z.shape[1]}: max |kernel - plain| z, "
+          f"z_mean {ez:.3e} (float64 plain: kernel {ez64:.3e}, float32 plain "
+          f"{own64:.3e}); kl rel {ekl:.2e} (kl mean {rkl.mean().item():.3f}); "
+          f"rewards {er:.3e} (float64 {er64:.3e}) in [{rrew.min().item():.4f}"
+          f", {rrew.max().item():.4f}]; z by step " + " ".join(
+              f"{e:.1e}" for e in (z - rz).abs().amax(dim=(0, 2, 3)).tolist()))
+    check(ez <= lim and ez64 <= lim, f"scan kernel z error {ez} / {ez64}")
+    check(ekl <= 2e-5, f"scan kernel kl error {ekl}")
+    check(er <= 1e-4 and er64 <= 1e-4, f"scan kernel rewards error {er}")
+    return ez, er, rew
+
+
+def hold_mean_rollout(name, dyn, cfg, z_post, prepared):
+    """Phase (2): the mean kernel rollout from posterior states at (256, 8),
+    (100, 8) and (32, 80).  Steps 1-8 are held to 1e-4, against the plain
+    version in float32 (cuBLAS) and evaluated in float64 (the kernel's own
+    error).  The latent rows reach |15| and the trained map amplifies
+    float32 rounding ~1.4x a step, so two float32 evaluations summing in
+    different orders drift apart.  Over a whole longer horizon the kernel's
+    distance from the float64 version is held to at most twice the float32
+    plain version's own distance from it.  Returns the largest 8-step error
+    against float32."""
+    import torch
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.train import checkpoint as ckpt_lib
+    dyn64 = ckpt_lib.params_from_numpy(dyn, z_post.device, torch.float64)
+    max_err = 0.0
+    for B, H in ((256, 8), (100, 8), (32, 80)):
+        z0 = z_post[:B].contiguous()
+        got = fr.rollout_states(dyn, cfg, z0, H, sample=False,
+                                prepared=prepared)
+        ref, _ = fr.rollout_states_reference(dyn, cfg, z0, H)
+        ref64, _ = fr.rollout_states_reference(dyn64, cfg, z0.double(), H)
+        torch.cuda.synchronize()
+        err8 = (got[:, :8] - ref[:, :8]).abs().max().item()
+        own8 = (got[:, :8].double() - ref64[:, :8]).abs().max().item()
+        max_err = max(max_err, err8)
+        per_step = (got[:, :8] - ref[:, :8]).abs().amax(dim=(0, 2, 3))
+        phase(name, f"B={B} H={H}: max |kernel - plain| over steps 1-8: "
+              f"{err8:.3e} vs float32 plain, {own8:.3e} vs float64 plain; "
+              f"by step vs float32: "
+              + " ".join(f"{e:.1e}" for e in per_step.tolist()))
+        check(err8 <= 1e-4 and own8 <= 1e-4,
+              f"{name} mean rollout error {err8} / {own8} > 1e-4 at B={B}")
+        if H > 8:
+            k64 = (got.double() - ref64).abs().amax(dim=(0, 2, 3))
+            p64 = (ref.double() - ref64).abs().amax(dim=(0, 2, 3))
+            k_all, p_all = k64.max().item(), p64.max().item()
+            phase(name, f"B={B} H={H}: max distance from float64 plain "
+                  f"over all {H} steps: kernel {k_all:.3e}, float32 plain "
+                  f"{p_all:.3e} (ratio {k_all / max(p_all, 1e-30):.3f}); "
+                  "by step 10, 20, ...: kernel " + " ".join(
+                      f"{e:.1e}" for e in k64[9::10].tolist())
+                  + "; float32 plain " + " ".join(
+                      f"{e:.1e}" for e in p64[9::10].tolist()))
+            check(k_all <= 2 * p_all,
+                  f"{name} kernel's {H}-step distance from float64 {k_all} "
+                  f"> 2x the float32 plain version's {p_all}")
+    return max_err
+
+
+def eps_moments(name, eps, what):
+    """Recovered normals: |mean| and |std - 1| < 0.01, share beyond 5 sigma
+    < 1e-5 (phase (3)'s limits)."""
+    m, s = eps.mean().item(), eps.std().item()
+    tail = (eps.abs() > 5).double().mean().item()
+    phase(name, f"{what}: eps over {eps.numel()} draws: mean {m:+.5f} std "
+          f"{s:.5f} share>5sigma {tail:.2e} max|eps| "
+          f"{eps.abs().max().item():.3f}")
+    check(abs(m) < 0.01 and abs(s - 1) < 0.01 and tail < 1e-5,
+          f"{name} sampled normals' moments ({what})")
+
+
+def fourth_slice(card: str, dev) -> dict:
+    import os
+    import tempfile
+
+    import torch
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch import tree
+    from stove_tpu_torch.envs import data as data_lib
+    from stove_tpu_torch.models import dynamics as dyn_lib
+    from stove_tpu_torch.models import stove as stove_lib
+    from stove_tpu_torch.models.bundle import StoveModel
+    from stove_tpu_torch.ops import fused_likelihood as flik
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.ops import fused_scan as fscan
+    from stove_tpu_torch.train import checkpoint as ckpt_lib
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4_")
+    acfg = ckpt_lib.load_config(AVOID)
+    amodel = StoveModel.from_run(AVOID, device=dev)
+    gcfg = ckpt_lib.load_config(GRAV)
+    gmodel = StoveModel.from_run(GRAV, device=dev)
+
+    def zero():
+        for k in (fscan, flik, fr):
+            k.launch_kernel.launches = 0
+
+    def counts():
+        return {"scan": fscan.launch_kernel.launches,
+                "likelihood": flik.launch_kernel.launches,
+                "rollout": fr.launch_kernel.launches}
+
+    def files(run):
+        return {p: os.path.getmtime(p) for p in
+                [os.path.join(run, f) for f in os.listdir(run)]}
+
+    # ---- (17) scan-act: the scan kernel with actions and the reward head
+    # at the avoidance training shape (B=256, T2=10), the checkpoint's
+    # weights, posterior inputs of rendered avoidance frames and their
+    # actions; then the gravity model's window (T2=14, no new code, a
+    # longer loop), held as phase (8) and, past its sixth step, by phase
+    # (2)'s float64 criterion (printed in the by-step line)
+    gen = torch.Generator().manual_seed(17)
+    a_args, a_acts, a_eps = scan_inputs(amodel, acfg, 256, gen, dev)
+    check(a_acts.min().item() >= 0 and len(torch.unique(a_acts)) > 1,
+          "the windows' actions vary")
+    out["scan_act_err"], out["scan_act_rew_err"], rew = hold_scan(
+        "scan-act", amodel.params["dynamics"], acfg, a_args, a_acts, a_eps)
+    check(rew.min().item() < 0.5 < rew.max().item(),
+          "the kernel's rewards span both classes")
+    g_args, g_acts, g_eps = scan_inputs(gmodel, gcfg, 256, gen, dev)
+    out["scan_grav_err"], _, _ = hold_scan(
+        "scan-act", gmodel.params["dynamics"], gcfg, g_args, g_acts, g_eps)
+
+    # ---- (18) avoid-train: preset=stove_avoidance from scratch at full
+    # width (only the corpus cut), 2 warm-up + 3 STOVE steps through the
+    # scan and likelihood kernels; every loss finite, reward terms too
+    common = ["preset=stove_avoidance", "num_train=64", "num_test=32",
+              "steps_per_epoch=1", f"run_dir={tmp}"]
+    zero()
+    t = time.perf_counter()
+    cfg_a, _, dev_a = entry.build_config(
+        common + ["scan_impl=pallas", "likelihood_impl=pallas",
+                  "num_epochs=5", "supair_only_epochs=2", "eval_every=5",
+                  "run_name=avoid_scratch"])
+    tr_a, res_a = entry.run_train(cfg_a, dev_a)
+    torch.cuda.synchronize()
+    n = counts()
+    rows = [json.loads(ln) for ln in open(
+        os.path.join(tr_a.run_dir, "metrics.jsonl"))]
+    train_rows = [r for r in rows if r["kind"] == "train"]
+    phase("avoid-train", f"from scratch: 5 epochs of 1 step in "
+          f"{time.perf_counter() - t:.1f} s; launches {n}; last loss "
+          f"{res_a['loss']:.2f} elbo {res_a['elbo']:.2f} reward_loss "
+          f"{res_a['reward_loss']:.4f} overshoot_reward "
+          f"{res_a['overshoot_reward']:.4f} reward_auc "
+          f"{res_a['reward_auc']:.3f}")
+    check(n["scan"] > 0 and n["likelihood"] > 0 and n["rollout"] > 0,
+          "avoidance training launched scan, likelihood and rollout")
+    check(len(train_rows) == 5 and all(
+        math.isfinite(r[k]) for r in train_rows for k in r
+        if isinstance(r[k], float)), "finite avoidance training losses")
+    stove_rows = train_rows[2:]
+    check(all(r["reward_loss"] > 0 and r["overshoot_reward"] > 0
+              for r in stove_rows), "reward losses in the STOVE steps")
+    out["launches_avoid_train"] = n
+
+    # one batch, the same noise: kernel-path gradients against plain-path
+    # ones, leaf by leaf, to phase (9)'s limits, raised to the plain path's
+    # own noise floor where that is higher; the reward heads' and the
+    # action rows' gradients must be nonzero.  The floor: the plain path's
+    # gradient moves when its forward moves by what float32 rounding moves
+    # it (a bilinear glimpse's gradient jumps where a sample point crosses
+    # a pixel centre, and 12-frame windows of 256 sequences hold ~10^6
+    # sample points).  It is measured here as the largest change, over the
+    # leaves, of the plain path's gradient when the frames move by 1e-5
+    # (the scan kernel's own distance from the plain version, phase (17));
+    # on the card it was 1.7e-3 of a leaf's largest entry for 1e-6 and
+    # 2.9e-3 for 1e-5, above phase (9)'s 1e-3, and the plain path run twice
+    # gave 1.4e-6.  The reward attention's last bias shifts every object's
+    # softmax logit alike, so its gradient is zero up to rounding (~2e-9):
+    # like a mixture logit, it is held to 1e-6 absolute.
+    B, T = cfg_a.batch_size, cfg_a.window
+    batch = data_lib.sample_windows(tr_a.train_ep, cfg_a,
+                                    torch.Generator(device=dev).manual_seed(3),
+                                    B)
+    noise = stove_lib.draw_elbo_noise(cfg_a, B, T,
+                                      torch.Generator().manual_seed(4), dev)
+    leaves = tree.leaves(tr_a.params)
+
+    def grads(c):
+        loss = stove_lib.elbo(tr_a.params, c, tr_a.model.specs,
+                              batch["frames"], batch["actions"],
+                              batch["rewards"], noise).loss
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    plain_a = cfg_a.with_overrides(scan_impl="xla", likelihood_impl="xla")
+    g_k = grads(cfg_a)
+    g_p = grads(plain_a)
+    clean = batch["frames"]
+    batch["frames"] = clean + 1e-5 * torch.randn(
+        clean.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(5))
+    g_q = grads(plain_a)
+    batch["frames"] = clean
+    rows_g, named, floor = [], {}, 0.0
+    for (path, _), a, b, q in zip(tree.paths(tr_a.params), g_k, g_p, g_q):
+        key = tree.keystr(path)
+        named[key] = a
+        if b is None:
+            check(a is None, f"gradient presence {key}")
+            continue
+        absolute = ("logits" in str(path[-1])
+                    or key.endswith("['reward_att'][2]['b']"))
+        scale = 1.0 if absolute else (b.abs().max().item() or 1.0)
+        if not absolute:
+            floor = max(floor, (q - b).abs().max().item() / scale)
+        rows_g.append(((a - b).abs().max().item() / scale, scale, key,
+                       absolute))
+    lim_rel = max(1e-3, floor)
+    rows_g = sorted(((d / (1e-6 if ab else lim_rel), sc, k)
+                     for d, sc, k, ab in rows_g), reverse=True)
+    for r in rows_g[:3]:
+        phase("avoid-train", f"gradient {r[2]}: max |kernel - plain| / scale "
+              f"{r[0]:.2e} of its limit; scale {r[1]:.3e}")
+    phase("avoid-train", f"the plain path's own floor (frames moved by "
+          f"1e-5): {floor:.2e} of a leaf's largest entry; limit "
+          f"{lim_rel:.2e}")
+    # every reward-head leaf but the attention's last bias, which shifts
+    # all objects' softmax logits alike and so has no gradient
+    reward_g = [v for k, v in named.items() if "reward" in k
+                and not k.endswith("['reward_att'][2]['b']")]
+    e0 = [v for k, v in named.items()
+          if "embed" in k and "[0]" in k and k.endswith("['w']")][0]
+    act_rows = e0[acfg.full_state_dim:].abs().max().item()
+    phase("avoid-train", f"gradients on one batch, {len(rows_g)} leaves: "
+          f"worst share of the limit {rows_g[0][0]:.2e}; reward-head leaves "
+          f"{len(reward_g)}, smallest max |g| "
+          f"{min(v.abs().max().item() for v in reward_g):.3e}; action rows "
+          f"max |g| {act_rows:.3e}")
+    check(rows_g[0][0] <= 1.0, "avoidance kernel-path gradients")
+    check(reward_g and all(v.abs().max().item() > 0 for v in reward_g),
+          "reward-head gradients nonzero")
+    check(act_rows > 0, "action-row gradients nonzero")
+
+    # ---- (19) avoid-resume: 20 steps from ckpts/r4a_dense_s2 with its
+    # Adam state through the kernels; means in AVOID_RESUME_BAND
+    before = files(AVOID)
+    zero()
+    t = time.perf_counter()
+    cfg_r, _, dev_r = entry.build_config(
+        [f"restore={AVOID}", "mode=train", "scan_impl=pallas",
+         "likelihood_impl=pallas", f"num_epochs={acfg.num_epochs + 1}",
+         f"run_dir={tmp}"])
+    tr_r, _ = entry.run_train(cfg_r, dev_r)
+    torch.cuda.synchronize()
+    n = counts()
+    steps = [{k: float(v) for k, v in m.items()} for m in tr_r.epoch_metrics]
+    mean = {k: sum(s[k] for s in steps) / len(steps)
+            for k in ("elbo", "kl", "reward_loss", "overshoot",
+                      "overshoot_reward")}
+    phase("avoid-resume", f"{AVOID} step {tr_r.step - len(steps)} -> "
+          f"{tr_r.step} in {time.perf_counter() - t:.1f} s, {len(steps)} "
+          f"steps: mean elbo {mean['elbo']:.2f}, kl {mean['kl']:.3f}, "
+          f"reward_loss {mean['reward_loss']:.4f}, overshoot "
+          f"{mean['overshoot']:.5f}, overshoot_reward "
+          f"{mean['overshoot_reward']:.4f}; launches {n}; elbo by step "
+          + " ".join(f"{s['elbo']:.1f}" for s in steps))
+    check(len(steps) == 20, "20 resumed avoidance steps")
+    check(n["scan"] > 0 and n["likelihood"] > 0,
+          "avoidance resume launched the kernels")
+    for k, (lo, hi) in AVOID_RESUME_BAND.items():
+        check(lo <= mean[k] <= hi,
+              f"avoidance resume {k} {mean[k]} outside [{lo}, {hi}]")
+    check(files(AVOID) == before, f"nothing written under {AVOID}")
+    out["avoid_resume"] = mean
+    out["launches_avoid_resume"] = n
+
+    # ---- (20) open-sampled: the open-loop std head in the sampled kernel,
+    # r4rp_grav_s32 weights, z0 from the posterior of rendered gravity
+    # frames.  H=1: eps recovered with the plain version's
+    # rollout_sigma_temp * std_open; H=92: dispersion kernel/plain; the
+    # mean rollout of this model by phase (2)'s criterion.
+    gdyn, gprep = gmodel.params["dynamics"], gmodel.prepared
+    check(fr.has_open_head(gcfg, gdyn), "the gravity model has the head")
+    wcfg = gcfg.with_overrides(seq_len=gcfg.window)
+    ep = data_lib.generate(wcfg, 4096, gen, dev)
+    with torch.no_grad():
+        inf = gmodel.infer(data_lib.normalize_frames(ep.frames), None,
+                           generator=gen)
+    z_post = inf.z_mean[:, -1].contiguous()
+    check(bool(torch.isfinite(z_post).all()), "gravity posterior finite")
+    z0 = z_post.repeat(4, 1, 1).contiguous()                  # 16384
+    s, _ = fr.rollout(gdyn, gcfg, z0, 1, True,
+                      torch.Generator().manual_seed(20), gprep)
+    d = dyn_lib.apply(gdyn, gcfg, z0)
+    check(s.numel() >= 10 ** 6, "at least 1e6 draws")
+    temp = gcfg.rollout_sigma_temp
+    eps_moments("open-sampled", (s[:, 0] - d.mean) / (temp * d.std_open),
+                "B=16384 H=1")
+    # the same seed through the library without the head draws the same
+    # normals (Philox counters): the std the open library injected, implied
+    # from its sample and those normals, against temp * std_open of the
+    # plain head, where the normal is well above rounding (|eps| > 0.5)
+    seed = int(torch.randint(0, 2 ** 62, (1,),
+                             generator=torch.Generator().manual_seed(20)))
+    mean_k, _ = fr.launch_kernel(gprep, gcfg, z0, 1, False, 0)
+    s_f, _ = fr.launch_kernel(gprep, gcfg, z0, 1, True, seed)
+    s_o, _ = fr.launch_kernel(gprep, gcfg, z0, 1, True, seed, None, True)
+    check(torch.equal(s_o, s), "the open library is what rollout launched")
+    eps_k = (s_f - mean_k)[:, 0] / (temp * d.std)
+    implied = (s_o - mean_k)[:, 0] / eps_k
+    want = temp * d.std_open
+    mask = eps_k.abs() > 0.5
+    mask[..., :2] = False
+    err = (implied - want).abs()[mask]
+    rel = err / want[mask]
+    out["open_std_err"] = err.max().item()
+    phase("open-sampled", f"same normals through both libraries: implied "
+          f"std vs temp * std_open over {int(mask.sum())} entries: max |err| "
+          f"{err.max().item():.3e}, relative max {rel.max().item():.2e} "
+          f"median {rel.median().item():.2e}")
+    check(rel.max().item() <= 1e-2, f"open-loop std error {rel.max()}")
+    phase("open-sampled", f"std_open / std on these states: "
+          f"{(d.std_open[..., 2:] / d.std[..., 2:]).mean().item():.4f} mean,"
+          f" std_open in [{d.std_open[..., 2:].min().item():.4g}, "
+          f"{d.std_open[..., 2:].max().item():.4g}]")
+    Bd, Hd = 8192, 92
+    z_one = z_post[:1].expand(Bd, -1, -1).contiguous()
+    got, _ = fr.rollout(gdyn, gcfg, z_one, Hd, True,
+                        torch.Generator().manual_seed(21), gprep)
+    noise = torch.randn((Bd, Hd) + tuple(z_one.shape[1:]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(22))
+    ref, _ = fr.rollout_states_reference(gdyn, gcfg, z_one, Hd, noise)
+    disp = lambda x: x[:, -1, :, 2:4].std(dim=0).mean().item()  # noqa: E731
+    ratio = disp(got) / max(disp(ref), 1e-12)
+    phase("open-sampled", f"H={Hd} B={Bd} position dispersion kernel/plain "
+          f"= {ratio:.4f} ({disp(got):.4f} / {disp(ref):.4f})")
+    check(0.9 <= ratio <= 1.1, f"open-head dispersion ratio {ratio}")
+    out["open_err"] = hold_mean_rollout("open-sampled", gdyn, gcfg, z_post,
+                                        gprep)
+
+    # the library with actions, the reward head and the open head
+    # (rollout_act's sampled case, pallas_rollout.py:510): no committed run
+    # has it, so a random open head is added to r4a_dense_s2's dynamics; at
+    # the planner's B=576, H=10, sampled, the eps of every step recovered
+    # from the kernel's own previous state, and its rewards against the
+    # plain reward head on that state
+    ocfg = acfg.with_overrides(open_loop_sigma=True)
+    odyn = dict(amodel.params["dynamics"], open=dyn_lib.init_params(
+        acfg.with_overrides(open_loop_sigma=True),
+        torch.Generator().manual_seed(23), dev)["open"])
+    oprep = fr.prepare_params(odyn, ocfg)
+    check(oprep.numel() == fr.param_count(ocfg, True) > fr.param_count(acfg),
+          "the open head's packed buffer")
+    a_post = a_args[0]                               # posterior z1, 256 rows
+    z0 = a_post[torch.arange(576, device=dev) % a_post.shape[0]].contiguous()
+    acts = torch.randint(0, acfg.num_actions, (576, 10), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(24))
+    zero()
+    s, r = fr.rollout(odyn, ocfg, z0, 10, True,
+                      torch.Generator().manual_seed(25), oprep, acts)
+    check(fr.launch_kernel.launches == 1, "one launch of the open library")
+    prev, eps, rerr = z0, [], 0.0
+    for t_ in range(10):
+        d = dyn_lib.apply(odyn, ocfg, prev, acts[:, t_])
+        eps.append((s[:, t_] - d.mean) / (ocfg.rollout_sigma_temp
+                                          * d.std_open))
+        rerr = max(rerr, (r[:, t_] - d.reward).abs().max().item())
+        prev = s[:, t_]
+    eps_moments("open-sampled", torch.stack(eps),
+                "actions + reward head + open head, B=576 H=10, every step")
+    phase("open-sampled", f"its rewards vs the plain head on the kernel's "
+          f"states: max |err| {rerr:.3e}")
+    check(rerr <= 1e-4, f"open library rewards error {rerr}")
+    out["act_open_rew_err"] = rerr
+    zero()
+
+    # ---- (21) grav-eval: mode=eval of r4rp_grav_s32 through the entry
+    # point, launches by (B, H, sampled, open head); then with the plain
+    # rollout; the JAX band; the sampled metrics beside 8 plain draws
+    ecfg, _, edev = entry.build_config([f"restore={GRAV}", "mode=eval"])
+    torch.backends.cudnn.allow_tf32 = True
+    shapes = {}
+    fr.launch_kernel.launches = 0
+    t = time.perf_counter()
+    with recording_rollouts(shapes):
+        m = entry.run_eval(ecfg, edev)
+        torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    launches = fr.launch_kernel.launches
+    for k, v in m.items():
+        print(f"  {k}: {v.detach().cpu().numpy()}")
+    phase("grav-eval", f"mode=eval of {GRAV} on the card {eval_s:.2f} s; "
+          f"rollout launches {launches} by (B, H, sampled, open head): "
+          + ", ".join(f"{k}: {v}" for k, v in sorted(shapes.items())))
+    check(launches > 0 and any(k[3] for k in shapes),
+          "gravity eval launched the open-head library")
+    check(not (torch.backends.cudnn.allow_tf32
+               or torch.backends.cuda.matmul.allow_tf32),
+          "the entry point runs with TF32 off")
+    mse, lin = m["mse_final"].item(), m["linear_mse_final"].item()
+    check(math.isfinite(mse) and mse < lin,
+          f"mse_final {mse} finite and below linear baseline {lin}")
+    mp = compare_plain_eval("grav-eval", m, ecfg, edev, launches)
+    for k, (lo, hi) in GRAV_EVAL_BAND.items():
+        v = m[k].item()
+        phase("grav-eval", f"{k} {v:.6g} in [{lo}, {hi}] (the JAX package's "
+              f"range on this corpus, widened)")
+        check(lo <= v <= hi, f"{k} {v} outside [{lo}, {hi}]")
+    # sampled 80-step metrics: the plain path's spread over 8 draws; the
+    # kernel's value within the draws' range widened by its width
+    from stove_tpu_torch.train import evaluate as eval_lib
+    test_ep = data_lib.split(ecfg, "test", dev)
+    emodel = StoveModel.from_run(GRAV, cfg=ecfg, device=dev)
+    kernel_dispatch = fr.rollout
+    fr.rollout = plain_rollout
+    try:
+        draws = [eval_lib.longhorizon_metrics(
+            emodel, test_ep, torch.Generator().manual_seed(ecfg.seed + 100 + k),
+            t_pred=80, sample=True) for k in range(8)]
+    finally:
+        fr.rollout = kernel_dispatch
+    sampled = {}
+    for k in ("speed_ratio", "frac_in_frame"):
+        v = [float(dr[k]) for dr in draws]
+        lo, hi = min(v), max(v)
+        w = hi - lo
+        got_v = m[f"longhorizon_sampled_{k}"].item()
+        plain_v = mp[f"longhorizon_sampled_{k}"].item()
+        phase("grav-eval", f"sampled 80-step {k}: kernel {got_v:.5f}, plain "
+              f"path {plain_v:.5f}; 8 plain draws {lo:.5f} to {hi:.5f} (mean "
+              f"{sum(v) / 8:.5f}); limit [{lo - w:.5f}, {hi + w:.5f}]")
+        check(lo - w <= got_v <= hi + w,
+              f"sampled {k} {got_v} outside the plain draws' limit")
+        sampled[k] = (got_v, plain_v, lo, hi)
+    out["grav_eval"] = {k: m[k].item() for k in GRAV_EVAL_BAND}
+    out["grav_eval_sampled"] = sampled
+    out["launches_grav_eval"] = {str(k): v for k, v in shapes.items()}
+    out["open_launches_eval"] = sum(v for k, v in shapes.items() if k[3])
+
+    # ---- (22) grav-train: 20 steps resumed from ckpt_00005200 through the
+    # kernels, and the Trainer's evaluation after them (eval_every=1: its
+    # 80-step sampled rollouts launch the open-head library); means in
+    # GRAV_RESUME_BAND
+    before = files(GRAV)
+    zero()
+    shapes = {}
+    t = time.perf_counter()
+    cfg_g, _, dev_g = entry.build_config(
+        [f"restore={GRAV}", "mode=train", "scan_impl=pallas",
+         "likelihood_impl=pallas", f"num_epochs={gcfg.num_epochs + 1}",
+         "eval_every=1", f"run_dir={tmp}"])
+    with recording_rollouts(shapes):
+        tr_g, res_g = entry.run_train(cfg_g, dev_g)
+        torch.cuda.synchronize()
+    n = counts()
+    steps = [{k: float(v) for k, v in m_.items()} for m_ in tr_g.epoch_metrics]
+    gmean = {k: sum(s_[k] for s_ in steps) / len(steps)
+             for k in ("elbo", "kl", "overshoot", "open_sigma_nll",
+                       "log_lik")}
+    gmean["overshoot_loss"] = gmean.pop("overshoot")
+    phase("grav-train", f"{GRAV} step {tr_g.step - len(steps)} -> "
+          f"{tr_g.step} in {time.perf_counter() - t:.1f} s, {len(steps)} "
+          f"steps: mean elbo {gmean['elbo']:.2f}, kl {gmean['kl']:.3f}, "
+          f"overshoot {gmean['overshoot_loss']:.5f}, open_sigma_nll "
+          f"{gmean['open_sigma_nll']:.3f}; eval mse_final "
+          f"{res_g['mse_final']:.5f} val_speed_ratio "
+          f"{res_g['val_speed_ratio']:.4f} sampled "
+          f"{res_g['val_speed_ratio_sampled']:.4f}; launches {n}, rollouts "
+          f"by (B, H, sampled, open head): " + ", ".join(
+              f"{k}: {v}" for k, v in sorted(shapes.items())))
+    check(len(steps) == 20, "20 resumed gravity steps")
+    check(n["scan"] > 0 and n["likelihood"] > 0 and any(
+        k[3] for k in shapes), "gravity training launched scan, likelihood "
+          "and the open-head rollout")
+    for k, (lo, hi) in GRAV_RESUME_BAND.items():
+        check(lo <= gmean[k] <= hi,
+              f"gravity resume {k} {gmean[k]} outside [{lo}, {hi}]")
+    check(files(GRAV) == before, f"nothing written under {GRAV}")
+    out["grav_resume"] = gmean
+    out["launches_grav_train"] = n
+    out["open_launches_train"] = sum(v for k, v in shapes.items() if k[3])
+
+    # ---- (23) timing: the scan kernel with actions and the reward head at
+    # (256, 10), the gravity scan at (256, 14), the open-head sampled
+    # rollout at B=16384, H=92, each beside its bound and plain version
+    def scan_bound(cfg, args, acts, eps, packed):
+        B_, T2 = acts.shape
+        flops = 2.0 * macs_per_frame(cfg) * B_ * T2
+        nbytes = 4.0 * (sum(a.numel() for a in args) + 3 * eps.numel() + B_
+                        + 2 * B_ * T2 + packed.numel())
+        return bound(flops, nbytes)
+
+    timing = {}
+    with torch.no_grad():
+        for label, mdl, c, args, acts, eps in (
+                ("avoid", amodel, acfg, a_args, a_acts, a_eps),
+                ("grav", gmodel, gcfg, g_args, g_acts, g_eps)):
+            dyn = mdl.params["dynamics"]
+            packed = fr.pack_params(dyn, c)
+            k_ms = time_cuda(lambda: fscan.launch_kernel(
+                packed, c, *args, eps, acts), iters=20, warmup=2)
+            p_ms = time_cuda(lambda: fscan.scan_reference(
+                dyn, c, *args, acts, eps), iters=5)
+            b_ms, by = scan_bound(c, args, acts, eps, packed)
+            timing[f"scan_{label}"] = (k_ms, p_ms, b_ms, by)
+            phase("timing4", f"scan kernel {label} B=256 T2={acts.shape[1]}:"
+                  f" {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+                  f"({by}, {macs_per_frame(c)} MACs/frame) on {card}")
+        z0 = z_post.repeat(4, 1, 1).contiguous()
+        g26 = torch.Generator().manual_seed(26)
+        k_ms = time_cuda(lambda: fr.rollout(gdyn, gcfg, z0, 92, True, g26,
+                                            gprep), iters=10)
+        noise = torch.randn((16384, 92) + tuple(z0.shape[1:]), device=dev)
+        p_ms = time_cuda(lambda: fr.rollout_states_reference(
+            gdyn, gcfg, z0, 92, noise), iters=2)
+        macs = macs_per_frame(gcfg, open_head=True)
+        flops = 2.0 * macs * 16384 * 92
+        nbytes = 4.0 * (z0.numel() * 93 + gprep.numel())
+        b_ms, by = bound(flops, nbytes)
+        timing["open"] = (k_ms, p_ms, b_ms, by)
+        phase("timing4", f"open-head sampled rollout B=16384 H=92: "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({by},"
+              f" {macs} MACs/frame), {flops / (k_ms * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s, {16384 * 92 / k_ms * 1e3:,.0f} frames/s on {card}")
+    out["timing"] = timing
+    phase("timing4", "launches by path: avoid-train "
+          f"{out['launches_avoid_train']}, avoid-resume "
+          f"{out['launches_avoid_resume']}, grav-eval "
+          f"{out['launches_grav_eval']}, grav-train "
+          f"{out['launches_grav_train']} (open head "
+          f"{out['open_launches_train']})")
+    return out
 
 
 if __name__ == "__main__":

@@ -8,8 +8,11 @@
 // reward_tile_pool.  The including file defines STOVE_O, STOVE_CL, STOVE_H
 // and STOVE_TB (samples per block) or takes the defaults below; an
 // action-conditioned model adds STOVE_ACT=1 and STOVE_NA (actions), a model
-// with a reward head STOVE_REW=1.  Without them the layout, shared memory
-// and code are those of the action-free model.  Everything here lives in an
+// with a reward head STOVE_REW=1, the sampled rollout of a model with an
+// open-loop std head STOVE_OPEN=1 (its weights follow all others in the
+// packed buffer, so the buffer of a library with the head serves the
+// libraries without it as its prefix).  Without them the layout, shared
+// memory and code are those of the action-free model.  Everything here lives in an
 // anonymous namespace: each kernel library gets its own copy.
 
 #pragma once
@@ -39,6 +42,9 @@
 #ifndef STOVE_REW
 #define STOVE_REW 0
 #endif
+#ifndef STOVE_OPEN
+#define STOVE_OPEN 0
+#endif
 
 namespace {
 
@@ -58,9 +64,12 @@ constexpr int LDP = MP + 4;
 constexpr bool ACT = STOVE_ACT != 0;  // one-hot action rows into embed layer 0
 constexpr int NA = STOVE_NA;          // actions
 constexpr bool REW = STOVE_REW != 0;  // reward head on the predicted mean
+constexpr bool OPEN = STOVE_OPEN != 0;  // open-loop std head (sampled rollout)
+constexpr int OPP = (4 + CL + 31) / 32 * 32;  // its padded output width
 
 static_assert(HID % 32 == 0 && M % 4 == 0, "widths must be multiples of 32 and 4");
-static_assert(DOUTP <= HID && D <= HID, "output rows must fit a hidden buffer");
+static_assert(DOUTP <= HID && D <= HID && OPP <= HID,
+              "output rows must fit a hidden buffer");
 
 // ---- packed parameter layout (floats); the order and sizes match
 // stove_tpu_torch/ops/fused_rollout.py::param_layout exactly.
@@ -99,7 +108,13 @@ constexpr int OFF_WRA1 = OFF_BRW1 + HID;        // attention layer 1 (h, h)
 constexpr int OFF_BRA1 = OFF_WRA1 + HID * HID;
 constexpr int OFF_WH2 = OFF_BRA1 + HID;         // (2h) last columns: score, attention
 constexpr int OFF_BH2 = OFF_WH2 + 2 * HID;      // (4; two used)
-constexpr int N_PARAMS = REW ? OFF_BH2 + 4 : END_ACT;
+constexpr int END_REW = REW ? OFF_BH2 + 4 : END_ACT;
+// open-loop std head: [W_op_s ; W_op_r] stacked along K to contract [s ; r]
+constexpr int OFF_WOP0 = END_REW;               // (2h, h)
+constexpr int OFF_BOP0 = OFF_WOP0 + 2 * HID * HID;
+constexpr int OFF_WOP1 = OFF_BOP0 + HID;        // (h, OPP), zero padded
+constexpr int OFF_BOP1 = OFF_WOP1 + HID * OPP;
+constexpr int N_PARAMS = OPEN ? OFF_BOP1 + OPP : END_REW;
 
 // ---- shared memory layout (floats)
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -347,6 +362,20 @@ __device__ __forceinline__ void integrate_mean(const float* __restrict__ zs,
         }
         Y[d * LDO + m] = v;
     }
+}
+
+// Open-loop std head (pallas_rollout.py:400-404, dynamics.py's `open` MLP)
+// on the step's [s ; r] in SR (2h, LDO): f = relu([W_op_s ; W_op_r]^T [s ;
+// r] + b_op0) into F (h, LDO), then the raw stds W_op1^T f + b_op1 into
+// RAW (OPP, LDO), row d - 2 for state row d >= 2.  Every thread of the
+// block calls it; it ends synchronised.
+__device__ __forceinline__ void open_head(const float* __restrict__ SR,
+                                          const float* __restrict__ P,
+                                          float* F, float* RAW, float* WS) {
+    gemm<M, HID, 2 * HID, true>(SR, LDO, P + OFF_WOP0, P + OFF_BOP0, F, LDO, WS);
+    __syncthreads();
+    gemm<M, OPP, HID, false>(F, LDO, P + OFF_WOP1, P + OFF_BOP1, RAW, LDO, WS);
+    __syncthreads();
 }
 
 // Geometry-aware reward head (pallas_rollout.py::reward_tile_pool,

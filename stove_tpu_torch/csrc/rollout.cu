@@ -3,7 +3,8 @@
 // Replaces: stove_tpu/ops/pallas_rollout.py::rollout_states and
 // ::rollout_act (the Pallas kernel body _make_kernel, its graph-net core
 // dyn_tile_core with the action term, Euler integration integrate_mean, the
-// reward head reward_tile_pool, and the in-kernel Box-Muller noise of
+// reward head reward_tile_pool, the open-loop std head of the sampled path
+// (_make_kernel's open_head branch), and the in-kernel Box-Muller noise of
 // _normals/_bits_to_normal_pairs).  Same contract: z0 (B, O, 6+cl) f32 and,
 // for an action-conditioned model (STOVE_ACT=1), actions (B, H) int32 in;
 // states (B, H, O, 6+cl) f32 and, with the reward head (STOVE_REW=1), the
@@ -50,7 +51,12 @@
 // stacked.  The action enters as its row of embed layer 0, added before
 // that layer's ReLU; the reward head runs after the state update on the
 // predicted mean, still in shared memory, in buffers the next step
-// overwrites.  Noise: Philox4x32-10 keyed by a seed the wrapper draws from the
+// overwrites.  The open-loop std head (STOVE_OPEN, sampled rollouts of a
+// model trained with open_loop_sigma) is a second two-layer MLP on [s ; r]
+// whose stds, floored at the wrapper's lo = min_open_std, replace the
+// output MLP's for the injected noise; its layers run in P2, free between
+// the dynamics and the reward head, so it needs no shared memory of its
+// own.  Noise: Philox4x32-10 keyed by a seed the wrapper draws from the
 // caller's torch.Generator, counter (chunk, step, sample, object), both
 // Box-Muller branches.
 //
@@ -133,7 +139,10 @@ rollout_kernel(const float* __restrict__ z0, const float* __restrict__ P,
         __syncthreads();
         if (sample) {
             // z = mean + temp * std * eps; std = size_std on the size rows,
-            // lo + (hi - lo) * sigmoid(raw) on pos/vel/latent rows
+            // lo + (hi - lo) * sigmoid(raw) on pos/vel/latent rows, raw from
+            // the output MLP or, with STOVE_OPEN, from the open-loop head
+            // (its rows in the second half of P2, the first half scratch)
+            if constexpr (OPEN) open_head(SR, P, P2, P2 + HID * LDO, WS);
             constexpr int NCH = (D + 3) / 4;
             for (int i = tid; i < NCH * M; i += NT) {
                 const int c = i / M, m = i % M;
@@ -148,7 +157,9 @@ rollout_kernel(const float* __restrict__ z0, const float* __restrict__ P,
                     const int d = 4 * c + q;
                     if (d < D) {
                         const float sd = d < 2 ? size_std
-                            : std_lo + (std_hi - std_lo) * sigmoidf(AE[(CL + d) * LDO + m]);
+                            : std_lo + (std_hi - std_lo) * sigmoidf(
+                                  OPEN ? P2[(HID + d - 2) * LDO + m]
+                                       : AE[(CL + d) * LDO + m]);
                         zs[d * LDO + m] = AEb[d * LDO + m] + (temp * sd) * nz[q];
                     }
                 }

@@ -3,18 +3,24 @@
 //
 // Replaces: stove_tpu/ops/pallas_scan.py::scan_fused (the Pallas kernel of
 // _make_kernel, on the graph-net core dyn_tile_core it shares with the
-// rollout).  Same contract as ops/fused_scan.py::scan_reference without actions
-// or a reward head: z1 (B, O, D), carried observation means/stds (B, O, 2),
-// encoder box means/stds sup_mean/sup_std (B, T2, O, 4) and pre-drawn
-// normals eps (B, T2, O, D), all f32, in; z and z_mean (B, T2, O, D) and the
-// summed KL increments kl (B,) out.  Each step, per sample: one dynamics
-// step (dyn_core.cuh), Euler integration to the prior mean, the prior std
+// rollout).  Same contract as ops/fused_scan.py::scan_reference: z1 (B, O,
+// D), carried observation means/stds (B, O, 2), encoder box means/stds
+// sup_mean/sup_std (B, T2, O, 4) and pre-drawn normals eps (B, T2, O, D),
+// all f32, and for an action-conditioned model (STOVE_ACT=1) the actions
+// a_{t-1} (B, T2) int32, in; z and z_mean (B, T2, O, D), the summed KL
+// increments kl (B,) and, with the reward head (STOVE_REW=1, set apart
+// from STOVE_ACT: the reference runs the head whenever its weights exist),
+// the raw reward probabilities (B, T2) f32 out.  Each step, per sample: one
+// dynamics step (dyn_core.cuh, with the action's row of embed layer 0),
+// Euler integration to the prior mean, the prior std
 // (size_std on the size rows, lo + (hi - lo) sigmoid(raw) elsewhere); slot
 // alignment of the encoder's boxes to the predicted positions over all O!
 // permutations in itertools order, keeping the first minimal one; products
 // of Gaussians for size, position and (per STOVE_VEL_MODE) velocity; the
 // sample z = q_mean + q_std * eps; the increment log p(z | prior) -
-// log q(z); the carried observation for the next step.
+// log q(z); the carried observation for the next step; the reward head on
+// the prior mean and the step's [s ; r] (pallas_scan.py:194), in the
+// dynamics' buffers once the posterior has read them.
 //
 // Bound on this card.  The dynamics are 613,632 multiply-adds per sample
 // and step at O=3, h=128, cl=16; at the training shape (B=256, T2=6) that is
@@ -25,6 +31,9 @@
 // wrapper), the smallest tile the block-wide matmul's 2-D lane layout
 // supports, for 32 blocks; each block still runs one sample group through
 // all T2 steps, the TPU's sequential fori_loop as a loop in the block.
+// The reward head adds 295,680 multiply-adds per sample and step (1.48x);
+// the avoidance window (T2=10) is then 4.7 GFLOP, the gravity window
+// (T2=14, no head) 4.4 GFLOP, both ~70 us at the f32 peak.
 // The posterior algebra is a few hundred flops per (object, sample) column
 // and runs one thread per column.
 //
@@ -77,8 +86,9 @@ __global__ void __launch_bounds__(NT, 1)
 scan_kernel(const float* __restrict__ z1, const float* __restrict__ carry_m,
             const float* __restrict__ carry_s, const float* __restrict__ sup_mean,
             const float* __restrict__ sup_std, const float* __restrict__ eps,
-            const float* __restrict__ P, float* __restrict__ z_out,
-            float* __restrict__ zm_out, float* __restrict__ kl_out, int B, int T2,
+            const int* __restrict__ actions, const float* __restrict__ P,
+            float* __restrict__ z_out, float* __restrict__ zm_out,
+            float* __restrict__ kl_out, float* __restrict__ rew_out, int B, int T2,
             float size_std, float std_lo, float std_hi, int latent_residual) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
@@ -89,7 +99,9 @@ scan_kernel(const float* __restrict__ z1, const float* __restrict__ carry_m,
     float* P2 = SR + SR_SIZE;
     float* LG = P2 + P2_SIZE;
     float* WS = LG + LG_SIZE;
-    float* CM = WS + WS_FLOATS;       // (2, M) carried observation mean
+    float* RW = WS + WS_FLOATS;       // (4, LDO) reward head rows (STOVE_REW)
+    int* ACTS = reinterpret_cast<int*>(RW + RW_SIZE);   // (TB) (STOVE_ACT)
+    float* CM = WS + WS_FLOATS + RW_SIZE + ACT_SIZE;    // (2, M) carried observation mean
     float* CS = CM + CM_SIZE;         // (2, M) and std
     float* LPQ = CS + CS_SIZE;        // (2, M) per-column log p, log q
     int* SEL = reinterpret_cast<int*>(LPQ + LPQ_SIZE);   // (TB, O)
@@ -113,7 +125,13 @@ scan_kernel(const float* __restrict__ z1, const float* __restrict__ carry_m,
     __syncthreads();
 
     for (int t = 0; t < T2; ++t) {
-        dyn_forward(zs, P, AE, AEb, SR, P2, LG, WS);
+        if constexpr (ACT) {
+            if (tid < TB) {
+                const int gb = b0 + tid;
+                ACTS[tid] = gb < B ? actions[(size_t)gb * T2 + t] : 0;
+            }
+        }
+        dyn_forward(zs, P, AE, AEb, SR, P2, LG, WS, ACTS);
         integrate_mean(zs, AE, AEb, latent_residual);   // prior mean into AEb
         __syncthreads();
 
@@ -226,6 +244,13 @@ scan_kernel(const float* __restrict__ z1, const float* __restrict__ carry_m,
             LPQ[M + m] = lq;
         }
         __syncthreads();
+        if constexpr (REW) {
+            // on the prior mean (still in AEb) and this step's [s ; r]
+            reward_head(AEb, SR, P, P2, AE, RW, WS);
+            if (tid < TB && b0 + tid < B) {
+                rew_out[(size_t)(b0 + tid) * T2 + t] = reward_pool(RW, tid);
+            }
+        }
         if (tid < TB) {
             float lp = 0.f, lq = 0.f;
             for (int o = 0; o < O; ++o) {
@@ -252,21 +277,25 @@ int stove_scan_tile() { return TB; }
 // Launches the scan on `stream`; returns the CUDA error code (0 = ok).
 // Pointers are device pointers; the caller checks shapes and allocates the
 // outputs.  params is the rollout's packed buffer (fused_rollout.pack_params).
+// actions (B, T2) int32 is read only with STOVE_ACT, rew_out (B, T2)
+// written only with STOVE_REW; each must be non-null there.
 cudaError_t stove_scan_launch(const float* z1, const float* carry_m,
                               const float* carry_s, const float* sup_mean,
                               const float* sup_std, const float* eps,
-                              const float* params, float* z_out, float* zm_out,
-                              float* kl_out, int B, int T2, float size_std,
+                              const int* actions, const float* params,
+                              float* z_out, float* zm_out, float* kl_out,
+                              float* rew_out, int B, int T2, float size_std,
                               float std_lo, float std_hi, int latent_residual,
                               void* stream) {
     if (B <= 0 || T2 <= 0) return cudaErrorInvalidValue;
+    if ((ACT && actions == nullptr) || (REW && rew_out == nullptr)) return cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SCAN_SMEM_BYTES);
     if (err != cudaSuccess) return err;
     const int grid = (B + TB - 1) / TB;
     scan_kernel<<<grid, NT, SCAN_SMEM_BYTES, (cudaStream_t)stream>>>(
-        z1, carry_m, carry_s, sup_mean, sup_std, eps, params, z_out, zm_out,
-        kl_out, B, T2, size_std, std_lo, std_hi, latent_residual);
+        z1, carry_m, carry_s, sup_mean, sup_std, eps, actions, params, z_out,
+        zm_out, kl_out, rew_out, B, T2, size_std, std_lo, std_hi, latent_residual);
     return cudaGetLastError();
 }
 

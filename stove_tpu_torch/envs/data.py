@@ -1,7 +1,7 @@
 """In-memory corpora and window batches (counterpart of
 `stove_tpu/envs/data.py`, without storage).
 
-`generate` simulates and renders a batch of billiards or avoidance
+`generate` simulates and renders a batch of billiards, gravity or avoidance
 sequences on the requested device (avoidance with uniformly random
 per-step actions and the environment's rewards) and quantises the frames
 to uint8 like the JAX corpora.

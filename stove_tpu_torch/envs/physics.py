@@ -1,11 +1,13 @@
-"""Billiards and avoidance physics and rendering (counterpart of
-`stove_tpu/envs/physics.py`; gravity is not ported yet, ROADMAP.md).
+"""Billiards, gravity and avoidance physics and rendering (counterpart of
+`stove_tpu/envs/physics.py`).
 
 Everything is batched over a leading sequence axis N as plain tensor code:
 `EnvState` holds (N, O, 2) positions and velocities and (N, O) radii and
 masses.  O equal-radius balls move at constant speed in a square arena
 with elastic ball-ball and ball-wall collisions, resolved pair by pair in
 the JAX package's sequential order, with collision substepping.  In the
+gravity task the balls attract each other (softened N-body forces, a weak
+pull to the arena's centre, semi-implicit Euler, no collisions).  In the
 avoidance task ball 0's velocity is set each step by one of 9 discrete
 actions (no-op and 8 compass directions), and the reward is
 `reward_contact` when ball 0 touched another ball during the step,
@@ -43,24 +45,19 @@ def action_directions() -> torch.Tensor:
     return _DIRS
 
 
-def _require_ported(cfg: Config) -> None:
-    if cfg.task == "gravity":
-        raise NotImplementedError(
-            "not ported yet: the 'gravity' environment (billiards and "
-            "avoidance only)")
-
-
 def init_state(cfg: Config, n: int, generator: Optional[torch.Generator],
                device: torch.device = torch.device("cpu")) -> EnvState:
-    """n random non-overlapping billiards or avoidance states
-    (physics.py:62-110; avoidance starts as billiards does).
+    """n random non-overlapping states (physics.py:62-110; avoidance
+    starts as billiards does).
 
     Uniform positions; 40 sweeps redraw every ball that overlaps another;
-    8 projection passes push any remaining overlaps apart; uniform random
-    headings at speed `init_speed`.  Draws come from `generator` on the
-    CPU (the same numbers on every device), then move to `device`.
+    8 projection passes push any remaining overlaps apart.  Billiards and
+    avoidance: uniform random headings at speed `init_speed`.  Gravity:
+    normal velocities of std 0.3·init_speed + 0.05 with their mean over
+    the balls removed (zero net momentum).  Unit masses.  Draws come from
+    `generator` on the CPU (the same numbers on every device), then move to
+    `device`.
     """
-    _require_ported(cfg)
     O = cfg.num_obj
     lo, hi = cfg.ball_radius, cfg.arena_size - cfg.ball_radius
     r = torch.full((n, O), cfg.ball_radius, dtype=torch.float32)
@@ -80,8 +77,14 @@ def init_state(cfg: Config, n: int, generator: Optional[torch.Generator],
         pos = torch.where(overlapping(pos)[..., None], sample_pos(), pos)
     pos = _separate_overlaps(pos, r, iters=8)
     pos = torch.clamp(pos, lo, hi)
-    ang = 2.0 * math.pi * torch.rand((n, O), generator=generator)
-    vel = cfg.init_speed * torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+    if cfg.task == "gravity":
+        vel = torch.randn((n, O, 2), generator=generator) * (
+            0.3 * cfg.init_speed + 0.05)
+        vel = vel - torch.mean(vel, dim=1, keepdim=True)
+    else:
+        ang = 2.0 * math.pi * torch.rand((n, O), generator=generator)
+        vel = cfg.init_speed * torch.stack([torch.cos(ang), torch.sin(ang)],
+                                           -1)
     return EnvState(pos.to(device), vel.to(device), r.to(device),
                     torch.ones((n, O), dtype=torch.float32, device=device))
 
@@ -167,6 +170,28 @@ def billiards_step(cfg: Config, state: EnvState) -> EnvState:
     return billiards_step_full(cfg, state)[0]
 
 
+def gravity_step(cfg: Config, state: EnvState) -> EnvState:
+    """One frame of softened N-body gravity with a weak centering pull
+    (physics.py:209-232): a_i = G Σ_j≠i m_j (p_j − p_i) / (|p_j − p_i|² +
+    ε)^{3/2} − k (p_i − c), then v ← v + a·dt, p ← p + v·dt, and the
+    elastic wall reflection."""
+    pos, vel = state.pos, state.vel
+    O = pos.shape[1]
+    eye = torch.eye(O, dtype=torch.bool, device=pos.device)
+    diff = pos[:, None, :, :] - pos[:, :, None, :]             # p_j − p_i
+    r2 = torch.sum(diff ** 2, -1) + cfg.gravity_eps
+    inv = torch.where(eye, torch.zeros_like(r2), r2 ** (-1.5))
+    mj = state.masses[:, None, :]
+    acc = cfg.gravity_strength * torch.sum((mj * inv)[..., None] * diff,
+                                           dim=2)              # (N, O, 2)
+    center = cfg.arena_size / 2.0
+    acc = acc - cfg.gravity_center_pull * (pos - center)
+    vel = vel + acc * cfg.gravity_dt
+    pos = pos + vel * cfg.gravity_dt
+    pos, vel = _wall_bounce(pos, vel, state.radii, cfg.arena_size)
+    return EnvState(pos, vel, state.radii, state.masses)
+
+
 def avoidance_step(cfg: Config, state: EnvState, action: torch.Tensor
                    ) -> Tuple[EnvState, torch.Tensor]:
     """Action-conditioned billiards (physics.py:235): ball 0's velocity is
@@ -185,14 +210,16 @@ def env_step(cfg: Config, state: EnvState,
              action: Optional[torch.Tensor] = None
              ) -> Tuple[EnvState, torch.Tensor]:
     """Dispatch on cfg.task (physics.py:251).  Returns (state, reward (N,)),
-    the reward zeros for billiards."""
-    _require_ported(cfg)
+    the reward zeros for billiards and gravity."""
+    zeros = torch.zeros(state.pos.shape[0], dtype=torch.float32,
+                        device=state.pos.device)
+    if cfg.task == "gravity":
+        return gravity_step(cfg, state), zeros
     if cfg.task == "avoidance":
         if action is None:
             raise ValueError("the avoidance task needs an action")
         return avoidance_step(cfg, state, action)
-    return billiards_step(cfg, state), torch.zeros(
-        state.pos.shape[0], dtype=torch.float32, device=state.pos.device)
+    return billiards_step(cfg, state), zeros
 
 
 def render(cfg: Config, pos: torch.Tensor, radii: torch.Tensor

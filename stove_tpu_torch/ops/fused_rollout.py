@@ -12,8 +12,10 @@ for its bound and design.
   library under `build/kernels/` (listed in .gitignore) at first use and
   loads it with ctypes (`ops/_build.py`).  Shapes and heads are
   compile-time (-D flags from the config, `job`), so a library is built
-  once per (O, cl, h, actions, reward head) and reused by content hash;
-  the action-free model's library has no action or reward code.
+  once per (O, cl, h, actions, reward head, open-loop std head) and reused
+  by content hash; the action-free model's library has no action or reward
+  code, and only the sampled rollout of a model with an open-loop std head
+  launches the library that has it.
 * `prepare_params` packs the dynamics weights into the one flat f32 buffer
   the kernel reads (`param_layout` gives its order).
 * `launch_kernel` checks device, dtype, shape and contiguity, allocates
@@ -49,7 +51,18 @@ def _dout_padded(cfg: Config) -> int:
     return (_dout(cfg) + 63) // 64 * 64
 
 
-def param_layout(cfg: Config) -> List[Tuple[str, Tuple[int, ...]]]:
+def _open_padded(cfg: Config) -> int:
+    return (4 + cfg.cl + 31) // 32 * 32   # OPP of csrc/dyn_core.cuh
+
+
+def has_open_head(cfg: Config, params: Dict) -> bool:
+    """Whether sampled rollouts draw with the open-loop std head, as
+    `dynamics.apply`'s `std_open` does."""
+    return bool(cfg.open_loop_sigma) and "open" in params
+
+
+def param_layout(cfg: Config, open_head: bool = False
+                 ) -> List[Tuple[str, Tuple[int, ...]]]:
     """(name, shape) of each segment of the packed buffer, in order.
 
     Matches the OFF_* constants of csrc/dyn_core.cuh.  Weights are (in,
@@ -57,7 +70,11 @@ def param_layout(cfg: Config) -> List[Tuple[str, Tuple[int, ...]]]:
     action-conditioned config adds embed[0]'s action rows; a reward head
     adds both heads' first layers side by side as one (2h, 2h) matrix over
     [s ; r], their contact-gap and min-distance rows, their second layers
-    and their last columns.
+    and their last columns; `open_head` last, the open-loop std head's
+    first layer over [s ; r] and its last layer, zero-padded to a multiple
+    of 32 columns (the order of pallas_rollout.py's _OPEN_PARAMS after the
+    others, :510).  A buffer with the open head is thus the buffer without
+    it followed by the head.
     """
     D, h, dp = cfg.full_state_dim, cfg.dyn_hidden, _dout_padded(cfg)
     extra = []
@@ -69,6 +86,10 @@ def param_layout(cfg: Config) -> List[Tuple[str, Tuple[int, ...]]]:
                   ("w_rw1", (h, h)), ("b_rw1", (h,)),
                   ("w_ra1", (h, h)), ("b_ra1", (h,)),
                   ("w_h2", (2 * h,)), ("b_h2", (4,))]
+    if open_head:
+        op = _open_padded(cfg)
+        extra += [("w_op0", (2 * h, h)), ("b_op0", (h,)),
+                  ("w_op1", (h, op)), ("b_op1", (op,))]
     return [
         ("w_e0", (D, h)), ("b_e0", (h,)),
         ("w_e1", (h, h)), ("b_e1", (h,)),
@@ -84,17 +105,23 @@ def param_layout(cfg: Config) -> List[Tuple[str, Tuple[int, ...]]]:
     ] + extra
 
 
-def check_supported(cfg: Config, params: Dict, sample: bool = True) -> None:
-    """Raise for configurations the kernel does not implement.  The
-    open-loop std head only sets the sampled noise's std, so, as in the
-    reference (pallas_rollout.py:357), only a sampled rollout needs it."""
+def kernel_config(cfg: Config, params: Dict) -> Config:
+    """The config the kernels are built and packed for: with a reward head
+    only when the params hold one, as `dynamics.apply` and the reference's
+    kernels (pallas_scan.py:227-229) compute it only then."""
+    if cfg.reward_head and "reward" not in params:
+        return cfg.with_overrides(reward_head=False)
+    return cfg
+
+
+def check_supported(cfg: Config, params: Dict) -> None:
+    """Raise for configurations the kernel does not implement."""
     if cfg.dyn_layers != 2:
         raise ValueError(f"fused rollout needs dyn_layers=2, got "
                          f"{cfg.dyn_layers}")
-    if sample and cfg.open_loop_sigma and "open" in params:
-        raise NotImplementedError(
-            "not ported yet: the open-loop std head inside the sampled "
-            "rollout kernel")
+    if has_open_head(cfg, params) and len(params["open"]) != 2:
+        raise ValueError("the kernel's open-loop std head is a two-layer "
+                         f"MLP; the params have {len(params['open'])}")
     if cfg.dyn_hidden % 32 or _dout_padded(cfg) > cfg.dyn_hidden:
         raise ValueError("fused rollout needs dyn_hidden a multiple of 32 "
                          "and >= the padded output width")
@@ -109,18 +136,20 @@ def prepare_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
     matmul; the last relational layer into its h feature columns and its
     attention column; output layer 0 into self and relational halves,
     stacked along K to contract [s ; r] at once.  The last output layer is
-    zero-padded to a multiple of 64 columns.  embed[0]'s action rows and
-    the reward heads follow (`param_layout`).  The buffer lives on the
-    weights' device.
+    zero-padded to a multiple of 64 columns.  embed[0]'s action rows, the
+    reward heads and, when sampled rollouts use it, the open-loop std head
+    follow (`param_layout`).  The buffer lives on the weights' device.
     """
-    check_supported(cfg, dyn_params, sample=False)
-    return pack_params(dyn_params, cfg)
+    check_supported(cfg, dyn_params)
+    return pack_params(dyn_params, kernel_config(cfg, dyn_params),
+                       has_open_head(cfg, dyn_params))
 
 
-def pack_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
+def pack_params(dyn_params: Dict, cfg: Config, open_head: bool = False
+                ) -> torch.Tensor:
     """The packing of `prepare_params` without its support check: the
-    posterior scan kernel (ops/fused_scan.py) reads the same buffer and
-    checks what it supports itself."""
+    posterior scan kernel (ops/fused_scan.py) reads the same buffer
+    without the open-loop head and checks what it supports itself."""
     p = dyn_params
     h, D = cfg.dyn_hidden, cfg.full_state_dim
     w_rel0, w_rel2, b_rel2 = p["rel"][0]["w"], p["rel"][2]["w"], p["rel"][2]["b"]
@@ -163,8 +192,18 @@ def pack_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
             "w_h2": torch.cat([rw[2]["w"][:, 0], ra[2]["w"][:, 0]]),
             "b_h2": b_h2,
         })
+    if open_head:
+        op0, op1 = p["open"]
+        w_op1 = torch.zeros((h, _open_padded(cfg)), dtype=torch.float32,
+                            device=w_out0.device)
+        w_op1[:, :4 + cfg.cl] = op1["w"]
+        b_op1 = torch.zeros((_open_padded(cfg),), dtype=torch.float32,
+                            device=w_out0.device)
+        b_op1[:4 + cfg.cl] = op1["b"]
+        seg.update({"w_op0": op0["w"], "b_op0": op0["b"], "w_op1": w_op1,
+                    "b_op1": b_op1})
     parts = []
-    for name, shape in param_layout(cfg):
+    for name, shape in param_layout(cfg, open_head):
         t = seg[name]
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel "
@@ -209,19 +248,26 @@ def rollout_states_reference(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
 # the CUDA kernel
 # --------------------------------------------------------------------------
 
-def job(cfg: Config) -> _build.Job:
+def job(cfg: Config, open_head: bool = False) -> _build.Job:
     """(source, defines) of the rollout library for this config's shapes
-    and heads."""
+    and heads; `open_head` for the sampled rollout of a model with an
+    open-loop std head (`has_open_head`)."""
     defines = (f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
                f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}")
     if cfg.action_conditioned:
         defines += ("-DSTOVE_ACT=1", f"-DSTOVE_NA={cfg.num_actions}")
     if cfg.reward_head:
         defines += ("-DSTOVE_REW=1",)
+    if open_head:
+        defines += ("-DSTOVE_OPEN=1",)
     return ("rollout.cu", defines)
 
 
-def _setup(cfg: Config):
+def param_count(cfg: Config, open_head: bool = False) -> int:
+    return sum(math.prod(s) for _, s in param_layout(cfg, open_head))
+
+
+def _setup(cfg: Config, open_head: bool):
     def setup(lib: ctypes.CDLL) -> None:
         lib.stove_rollout_param_count.restype = ctypes.c_int
         lib.stove_rollout_param_count.argtypes = []
@@ -237,33 +283,58 @@ def _setup(cfg: Config):
             ctypes.c_float, ctypes.c_int,                        # temp, latent_residual
             ctypes.c_void_p,                                     # stream
         ]
-        expect = sum(math.prod(s) for _, s in param_layout(cfg))
+        expect = param_count(cfg, open_head)
         if lib.stove_rollout_param_count() != expect:
             raise RuntimeError(
                 f"kernel packs {lib.stove_rollout_param_count()} params, "
                 f"param_layout {expect}: csrc/dyn_core.cuh and "
-                f"fused_rollout.param_layout disagree (each of the action "
-                f"and reward variants has its own count)")
+                f"fused_rollout.param_layout disagree (each of the action, "
+                f"reward and open-loop variants has its own count)")
     return setup
 
 
-def load(cfg: Config) -> ctypes.CDLL:
+def load(cfg: Config, open_head: bool = False) -> ctypes.CDLL:
     """Build (at first use) and load the kernel library for `cfg`."""
-    src, defines = job(cfg)
-    return _build.load(src, defines, _setup(cfg))
+    src, defines = job(cfg, open_head)
+    return _build.load(src, defines, _setup(cfg, open_head))
+
+
+def int32_actions(cfg: Config, actions: Optional[torch.Tensor], B: int,
+                  steps: int, like: torch.Tensor) -> Optional[torch.Tensor]:
+    """The (B, steps) actions a kernel of an action-conditioned config
+    reads, as contiguous int32 on `like`'s device (zeros when None, as
+    `dynamics.apply` does); None for other configs."""
+    if not cfg.action_conditioned:
+        return None
+    if actions is None:
+        return torch.zeros((B, steps), dtype=torch.int32, device=like.device)
+    if tuple(actions.shape) != (B, steps):
+        raise ValueError(f"actions shape {tuple(actions.shape)}, expected "
+                         f"{(B, steps)}")
+    if actions.dtype.is_floating_point or actions.dtype == torch.bool:
+        raise TypeError("actions must be integers")
+    _build.check_device(like, actions)
+    return actions.to(torch.int32).contiguous()
 
 
 def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
                   horizon: int, sample: bool, seed: int,
-                  actions: Optional[torch.Tensor] = None
+                  actions: Optional[torch.Tensor] = None,
+                  open_head: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check the inputs, allocate the outputs and launch the kernel once on
     the current stream: (states (B, H, O, D), rewards (B, H)), the rewards
     zeros without a reward head.  An action-conditioned config takes
     `actions` (B, H) integers on z0's device (zeros when None, as
-    `dynamics.apply` does).  Takes CUDA tensors only.
+    `dynamics.apply` does).  `open_head` (sampled only) launches the
+    library with the open-loop std head, whose stds are floored at
+    `min_open_std`; it needs `prepared` packed with the head, which the
+    other libraries read as its prefix.  Takes CUDA tensors only.
     `launch_kernel.launches` counts the launches (a run sets it to 0 and
     reads it after)."""
+    if open_head and not sample:
+        raise ValueError("the open-loop std head sets the sampled noise "
+                         "only; a mean rollout launches without it")
     _build.check_device(z0, prepared)
     if z0.dtype != torch.float32 or prepared.dtype != torch.float32:
         raise TypeError("fused rollout takes float32 z0 and params")
@@ -276,28 +347,22 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
                          "device (use prepare_params)")
     if not (z0.is_contiguous() and prepared.is_contiguous()):
         raise ValueError("fused rollout needs contiguous z0 and params")
-    acts = None
-    if cfg.action_conditioned:
-        if actions is None:
-            actions = torch.zeros((B, horizon), dtype=torch.int32,
-                                  device=z0.device)
-        if tuple(actions.shape) != (B, horizon):
-            raise ValueError(f"actions shape {tuple(actions.shape)}, "
-                             f"expected {(B, horizon)}")
-        if actions.dtype.is_floating_point or actions.dtype == torch.bool:
-            raise TypeError("actions must be integers")
-        _build.check_device(z0, actions)
-        acts = actions.to(torch.int32).contiguous()
+    acts = int32_actions(cfg, actions, B, horizon, z0)
     rewards = z0.new_zeros((B, max(horizon, 0)))
     if horizon <= 0 or B == 0:
         return z0.new_empty((B, max(horizon, 0), O, D)), rewards
-    lib = load(cfg)
-    if prepared.numel() != lib.stove_rollout_param_count():
+    lib = load(cfg, open_head)
+    sizes = {lib.stove_rollout_param_count()}
+    if not open_head and cfg.open_loop_sigma:
+        sizes.add(param_count(cfg, True))     # the head's buffer, as prefix
+    if prepared.numel() not in sizes:
         raise ValueError("prepared params have the wrong size for this "
-                         "config")
+                         "config" + (" (packed without the open-loop head?)"
+                                     if open_head else ""))
     out = torch.empty((B, horizon, O, D), dtype=torch.float32,
                       device=z0.device)
-    lo, hi = cfg.min_dyn_std, cfg.max_dyn_std
+    lo = cfg.min_open_std if open_head else cfg.min_dyn_std
+    hi = cfg.max_dyn_std
     with torch.cuda.device(z0.device):
         err = lib.stove_rollout_launch(
             z0.data_ptr(), prepared.data_ptr(),
@@ -325,7 +390,8 @@ def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
     (B, horizon) (the reward head's raw probabilities; zeros without one).
     actions: (B, horizon) integers, read by an action-conditioned config.
     On a CUDA tensor this launches the kernel (building it at first use)
-    and raises if it cannot (`check_supported`).  `prepared` is
+    and raises if it cannot (`check_supported`); a sampled rollout of a
+    model with an open-loop std head launches the library with the head.  `prepared` is
     `prepare_params(dyn_params, cfg)` cached by the caller (computed here
     when absent); the sampled kernel draws its noise in-kernel from a seed
     taken from `generator`.  On a CPU tensor it runs
@@ -334,7 +400,7 @@ def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
     """
     B = z0.shape[0]
     if z0.device.type == "cuda":
-        check_supported(cfg, dyn_params, sample)
+        check_supported(cfg, dyn_params)
         if prepared is None:
             prepared = prepare_params(dyn_params, cfg)
         seed = 0
@@ -342,8 +408,9 @@ def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
             seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                                      device=generator.device
                                      if generator is not None else "cpu"))
-        return launch_kernel(prepared, cfg, z0, horizon, sample, seed,
-                             actions)
+        return launch_kernel(prepared, kernel_config(cfg, dyn_params), z0,
+                             horizon, sample, seed, actions,
+                             sample and has_open_head(cfg, dyn_params))
     if z0.device.type != "cpu":
         raise ValueError(f"fused rollout runs on cuda or cpu, not "
                          f"{z0.device}")

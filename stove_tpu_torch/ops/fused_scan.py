@@ -13,9 +13,10 @@ the top of the source.
 * `launch_kernel` checks its inputs, launches once on the current stream
   and counts its launches (`launch_kernel.launches`).
 * `scan_fused` is the dispatch `scan_impl="pallas"` takes: the kernel on
-  CUDA tensors (or it raises: actions and the reward head are not in the
-  kernel), the plain version on CPU tensors, and either way the gradient
-  of the plain version (`ops/_vjp.py`).
+  CUDA tensors (or it raises), the plain version on CPU tensors, and
+  either way the gradient of the plain version (`ops/_vjp.py`).  The
+  rewards of the forward are the kernel's: the reward loss is computed on
+  them, and its gradient is the plain version's at the same inputs.
 """
 
 from __future__ import annotations
@@ -100,12 +101,6 @@ def scan_reference(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
 
 def check_supported(cfg: Config, dyn_params: Dict) -> None:
     """Raise for configurations the kernel does not implement."""
-    if cfg.action_conditioned:
-        raise NotImplementedError(
-            "not ported yet: the action-conditioned posterior scan kernel")
-    if cfg.reward_head and "reward" in dyn_params:
-        raise NotImplementedError(
-            "not ported yet: the reward head inside the posterior scan kernel")
     if cfg.dyn_layers != 2 or cfg.num_obj > 4:
         raise ValueError("the scan kernel needs dyn_layers=2 and num_obj <= 4")
     if cfg.dyn_hidden % 32 or fused_rollout._dout_padded(cfg) > cfg.dyn_hidden:
@@ -123,31 +118,52 @@ def velocity_mode(cfg: Config) -> int:
 
 
 def job(cfg: Config) -> _build.Job:
-    return ("scan.cu", (f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
-                        f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}",
-                        f"-DSTOVE_VEL_MODE={velocity_mode(cfg)}"))
+    """(source, defines) of the scan library: shapes, the velocity mode,
+    and, as the rollout's (`fused_rollout.job`), the action term for an
+    action-conditioned config and the reward head when the config has one
+    (`fused_rollout.kernel_config` drops it where the params hold none)."""
+    defines = (f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
+               f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}",
+               f"-DSTOVE_VEL_MODE={velocity_mode(cfg)}")
+    if cfg.action_conditioned:
+        defines += ("-DSTOVE_ACT=1", f"-DSTOVE_NA={cfg.num_actions}")
+    if cfg.reward_head:
+        defines += ("-DSTOVE_REW=1",)
+    return ("scan.cu", defines)
 
 
-def _setup(lib: ctypes.CDLL) -> None:
-    for name in ("stove_scan_param_count", "stove_scan_smem_bytes",
-                 "stove_scan_tile"):
-        getattr(lib, name).restype = ctypes.c_int
-        getattr(lib, name).argtypes = []
-    lib.stove_scan_launch.restype = ctypes.c_int
-    lib.stove_scan_launch.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
-        + [ctypes.c_int, ctypes.c_void_p])
+def _setup(cfg: Config):
+    def setup(lib: ctypes.CDLL) -> None:
+        for name in ("stove_scan_param_count", "stove_scan_smem_bytes",
+                     "stove_scan_tile"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = []
+        lib.stove_scan_launch.restype = ctypes.c_int
+        lib.stove_scan_launch.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2
+            + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
+        expect = fused_rollout.param_count(cfg)
+        if lib.stove_scan_param_count() != expect:
+            raise RuntimeError(
+                f"scan kernel packs {lib.stove_scan_param_count()} params, "
+                f"param_layout {expect}: csrc/dyn_core.cuh and "
+                f"fused_rollout.param_layout disagree")
+    return setup
 
 
 def load(cfg: Config) -> ctypes.CDLL:
     src, defines = job(cfg)
-    return _build.load(src, defines, _setup)
+    return _build.load(src, defines, _setup(cfg))
 
 
 def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
-                  sup_mean, sup_std, eps
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch → (z, z_mean (B, T2, O, D), kl (B,)); CUDA f32 only."""
+                  sup_mean, sup_std, eps, actions=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """One launch → (z, z_mean (B, T2, O, D), kl (B,), rewards (B, T2));
+    CUDA f32 only.  An action-conditioned config reads `actions` (B, T2)
+    integers (zeros when None, as `dynamics.apply` does); the rewards are
+    zeros without a reward head."""
     ins = [z1, carry_m, carry_s, sup_mean, sup_std, eps]
     _build.check_device(prepared, *ins)
     if any(x.dtype != torch.float32 for x in [prepared] + ins):
@@ -165,24 +181,28 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
         raise ValueError(f"z1 shape {tuple(z1.shape)} does not match the "
                          f"config (O={cfg.num_obj}, D={cfg.full_state_dim})")
     ins = [x.contiguous() for x in ins]
+    acts = fused_rollout.int32_actions(cfg, actions, B, T2, z1)
     z = torch.empty((B, T2, O, D), dtype=torch.float32, device=z1.device)
     zm = torch.empty_like(z)
     kl = torch.zeros((B,), dtype=torch.float32, device=z1.device)
+    rewards = torch.zeros((B, T2), dtype=torch.float32, device=z1.device)
     if B == 0 or T2 == 0:
-        return z, zm, kl
+        return z, zm, kl, rewards
     lib = load(cfg)
     if prepared.numel() != lib.stove_scan_param_count():
         raise ValueError("packed dynamics params have the wrong size")
     with torch.cuda.device(z1.device):
         err = lib.stove_scan_launch(
-            *[x.data_ptr() for x in ins], prepared.data_ptr(), z.data_ptr(),
-            zm.data_ptr(), kl.data_ptr(), B, T2, cfg.size_std,
-            cfg.min_dyn_std, cfg.max_dyn_std, int(cfg.latent_residual),
-            _build.stream_of(z1))
+            *[x.data_ptr() for x in ins],
+            None if acts is None else acts.data_ptr(), prepared.data_ptr(),
+            z.data_ptr(), zm.data_ptr(), kl.data_ptr(),
+            rewards.data_ptr() if cfg.reward_head else None, B, T2,
+            cfg.size_std, cfg.min_dyn_std, cfg.max_dyn_std,
+            int(cfg.latent_residual), _build.stream_of(z1))
     if err != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
     launch_kernel.launches += 1
-    return z, zm, kl
+    return z, zm, kl, rewards
 
 
 launch_kernel.launches = 0
@@ -200,12 +220,13 @@ def scan_fused(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
         return scan_reference(tree.unflatten(template, list(args[:n])), cfg,
                               *args[n:])
 
+    kcfg = fused_rollout.kernel_config(cfg, dyn_params)
+
     def fast(*args):
-        z1_, cm, cs, smean, sstd, _, ep = args[n:]
+        z1_, cm, cs, smean, sstd, acts, ep = args[n:]
         packed = fused_rollout.pack_params(
-            tree.unflatten(template, list(args[:n])), cfg)
-        z, zm, kl = launch_kernel(packed, cfg, z1_, cm, cs, smean, sstd, ep)
-        return z, zm, kl, z1_.new_zeros(z.shape[:2])
+            tree.unflatten(template, list(args[:n])), kcfg)
+        return launch_kernel(packed, kcfg, z1_, cm, cs, smean, sstd, ep, acts)
 
     inputs = (*tree.leaves(dyn_params), z1, carry_m, carry_s, sup_mean,
               sup_std, actions, eps)

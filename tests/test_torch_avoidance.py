@@ -193,14 +193,22 @@ def test_packed_layout_covers_actions_and_reward_heads(run):
 
 
 def test_check_supported_takes_actions_and_the_reward_head(run):
+    """Actions, the reward head and, on top of them, an open-loop std head
+    (the rollout_act case of pallas_rollout.py:510, which no committed run
+    has) are supported; an open head of another depth is not."""
     cfg, model, _ = run
     fr.check_supported(cfg, model.params["dynamics"])
-    fr.check_supported(cfg, model.params["dynamics"], sample=True)
-    open_cfg = Config().with_overrides(open_loop_sigma=True)
-    params = {"open": []}
-    fr.check_supported(open_cfg, params, sample=False)
-    with pytest.raises(NotImplementedError, match="open-loop"):
-        fr.check_supported(open_cfg, params, sample=True)
+    open_cfg = cfg.with_overrides(open_loop_sigma=True)
+    h = cfg.dyn_hidden
+    params = dict(model.params["dynamics"], open=[
+        {"w": torch.zeros(2 * h, h), "b": torch.zeros(h)},
+        {"w": torch.zeros(h, 4 + cfg.cl), "b": torch.zeros(4 + cfg.cl)}])
+    fr.check_supported(open_cfg, params)
+    assert fr.has_open_head(open_cfg, params)
+    assert fr.prepare_params(params, open_cfg).numel() == \
+        fr.param_count(open_cfg, True) > fr.param_count(cfg)
+    with pytest.raises(ValueError, match="two-layer"):
+        fr.check_supported(open_cfg, dict(params, open=params["open"][:1]))
 
 
 def test_cpu_rollout_takes_actions_without_a_kernel(run):

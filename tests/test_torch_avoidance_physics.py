@@ -1,6 +1,7 @@
 """The avoidance environment on the CPU: physics against the JAX package
 over 30 steps with the same actions (1e-4 arena units, rewards exactly),
-the action table, and the corpora with and without actions."""
+the action table, and the corpora with and without actions.  The gravity
+environment's tests are in tests/test_torch_gravity.py."""
 
 import jax
 import jax.numpy as jnp
@@ -66,12 +67,6 @@ def test_avoidance_physics_matches_jax_over_30_steps(cfg):
         np.testing.assert_array_equal(tr.numpy(), np.asarray(one_r))
         touched += float((tr == cfg.reward_contact).sum())
     assert touched > 0            # the run saw contacts, not only free steps
-
-
-def test_gravity_is_not_ported():
-    cfg = Config().with_overrides(task="gravity")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tphys.init_state(cfg, 2, torch.Generator().manual_seed(0))
 
 
 def test_avoidance_corpus_has_actions_and_rewards(cfg):

@@ -115,12 +115,13 @@ def test_kernel_wrapper_rejects_cpu_tensors(trained):
     dict(dyn_layers=3),
 ], ids=["open_sigma", "depth"])
 def test_unsupported_configs_raise(kw):
-    """Sampled rollouts with the open-loop std head and other depths raise
-    (actions and the reward head are supported:
-    tests/test_torch_avoidance.py)."""
+    """An open-loop std head that is not the two-layer MLP the kernel
+    computes, and other depths, raise (actions, the reward head and the
+    open-loop head are supported: tests/test_torch_avoidance.py and
+    tests/test_torch_gravity.py)."""
     cfg = Config().with_overrides(**kw)
     params = {"reward": [], "open": []}
-    with pytest.raises((NotImplementedError, ValueError)):
+    with pytest.raises(ValueError):
         fr.check_supported(cfg, params)
 
 
@@ -192,3 +193,35 @@ def test_action_kernel_matches_plain_version(cuda_device, B, H):
         assert k <= 2 * p + 1e-6, (k, p)
         if H == 1:
             assert k <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_open_head_kernel_injects_the_open_std(cuda_device):
+    """The sampled library with the open-loop std head (ckpts/r4rp_grav_s32):
+    the same seed through the library without the head draws the same
+    normals, so the std the open library injected, implied from its sample
+    and those normals, is rollout_sigma_temp * std_open of the plain head
+    (1e-2 relative where the normal is above 0.5; chip_smoke.py phase (20)
+    measured 1.1e-4 at most); the recovered normals have phase (3)'s
+    moments."""
+    run = "ckpts/r4rp_grav_s32"
+    cfg = ckpt.load_config(run)
+    dyn = ckpt.load_params(run, device=cuda_device)["dynamics"]
+    prep = fr.prepare_params(dyn, cfg)
+    z0 = _z0(cfg, 16384, 7).to(cuda_device)
+    mean, _ = fr.launch_kernel(prep, cfg, z0, 1, False, 0)
+    plain_noise, _ = fr.launch_kernel(prep, cfg, z0, 1, True, 11)
+    before = fr.launch_kernel.launches
+    s, _ = fr.launch_kernel(prep, cfg, z0, 1, True, 11, None, True)
+    assert fr.launch_kernel.launches == before + 1
+    d = fr.dyn_lib.apply(dyn, cfg, z0)
+    temp = cfg.rollout_sigma_temp
+    eps = (plain_noise - mean)[:, 0] / (temp * d.std)
+    mask = eps.abs() > 0.5
+    mask[..., :2] = False
+    implied = ((s - mean)[:, 0] / eps)[mask]
+    want = (temp * d.std_open)[mask]
+    assert ((implied - want).abs() / want).max().item() <= 1e-2
+    e = (s[:, 0] - d.mean) / (temp * d.std_open)
+    assert abs(e.mean().item()) < 0.01 and abs(e.std().item() - 1) < 0.01
+    assert (e.abs() > 5).float().mean().item() < 1e-5

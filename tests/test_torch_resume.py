@@ -15,6 +15,7 @@ the same inputs (rtol 1e-5, as in test_torch_elbo.py).
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from stove_tpu.envs import data as jdata
@@ -50,3 +51,62 @@ def test_reference_float32_elbo_on_its_training_corpus():
     assert -10.5 <= kl <= -7.5, kl
     assert over < 0.02, over
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.slow
+def test_bfloat16_matmuls_do_not_explain_the_logged_kl(capsys):
+    """Candidate 1 for the gap between the run's log (kl -5.9) and the
+    reference's float32 kl at the same weights: the TPU's default
+    precision, one bfloat16 pass per matmul.  On the CPU,
+    jax.default_matmul_precision("bfloat16") changes nothing (XLA's CPU
+    dots ignore it: asserted), so the reference's `stove.elbo` is
+    evaluated a third time with every dot and convolution operand rounded
+    to bfloat16 (f32 accumulation, the MXU's single pass), by wrapping
+    jax's own dot_general and conv_general_dilated for this test only.
+    The windows, noise and weights are test_reference_float32_elbo_on_
+    its_training_corpus's.  Finding: kl moves by less than 0.5, not the
+    ~3 toward -5.9 that would explain the log."""
+    from jax._src.lax import convolution as jconv
+    from jax._src.lax import lax as jlax
+
+    jc = jckpt.load_config(RUN)
+    jm = JModel(jc)
+    _, loaded = jckpt.restore(RUN, {"params": jm.init_params()})
+    ep = jdata.generate(jc, 64, jax.random.key(jc.seed))
+    batches = [jdata.sample_windows(ep, jc, jax.random.key(100 + i), 32)
+               for i in range(4)]
+
+    def terms():
+        jax.clear_caches()
+        rows = [jm.elbo(loaded["params"], b["frames"], None, None,
+                        jax.random.key(200 + i))
+                for i, b in enumerate(batches)]
+        return np.array([[float(o.elbo), float(o.kl)] for o in rows])
+
+    f32 = terms()
+    with jax.default_matmul_precision("bfloat16"):
+        flag = terms()
+    real_dot, real_conv = jlax.dot_general, jconv.conv_general_dilated
+
+    def bf16(x):
+        return (x.astype(jax.numpy.bfloat16).astype(x.dtype)
+                if x.dtype == jax.numpy.float32 else x)
+
+    jlax.dot_general = lambda a, b, *r, **k: real_dot(bf16(a), bf16(b), *r,
+                                                      **k)
+    jconv.conv_general_dilated = lambda a, b, *r, **k: real_conv(
+        bf16(a), bf16(b), *r, **k)
+    try:
+        rounded = terms()
+    finally:
+        jlax.dot_general, jconv.conv_general_dilated = real_dot, real_conv
+        jax.clear_caches()
+    with capsys.disabled():
+        for name, v in (("float32", f32), ("precision flag", flag),
+                        ("bf16 operands", rounded)):
+            print(f"\n[bf16] {name}: elbo {v[:, 0].mean():.2f} kl "
+                  f"{v[:, 1].mean():.3f}", end="")
+        print()
+    np.testing.assert_array_equal(flag, f32)
+    assert abs(rounded[:, 1].mean() - f32[:, 1].mean()) < 0.5
+    assert rounded[:, 1].mean() < -7.5

@@ -217,3 +217,35 @@ def test_kernels_on_ragged_batches(card, B):
     assert (got[0].double() - ref[0]).abs().max().item() <= 1e-4
     assert ((got[2].double() - ref[2]).abs()
             / ref[2].abs().clamp_min(1.0)).max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_scan_with_actions_and_reward_head(card):
+    """The scan library with actions and the reward head
+    (ckpts/r4a_dense_s2's weights) on random inputs and actions, B=13 (a
+    ragged last block), 4 steps: z within 1e-4 and rewards within 1e-4 of
+    the plain version in float64, kl within 2e-5 relative."""
+    _, frames, _, gen = card
+    run = "ckpts/r4a_dense_s2"
+    model = StoveModel.from_run(run, device=frames.device)
+    cfg, dyn = model.cfg, model.params["dynamics"]
+    B, T2, D = 13, 4, cfg.full_state_dim
+    args = [0.1 * torch.randn((B, 3, D), generator=gen),
+            0.1 * torch.randn((B, 3, 2), generator=gen),
+            0.1 + 0.1 * torch.rand((B, 3, 2), generator=gen),
+            0.3 * torch.randn((B, T2, 3, 4), generator=gen),
+            0.05 + 0.1 * torch.rand((B, T2, 3, 4), generator=gen)]
+    args = [a.to(frames.device) for a in args]
+    acts = torch.randint(0, cfg.num_actions, (B, T2), generator=gen).to(
+        frames.device)
+    eps = torch.randn((B, T2, 3, D), generator=gen).to(frames.device)
+    before = fscan.launch_kernel.launches
+    with torch.no_grad():
+        got = fscan.scan_fused(dyn, cfg, *args, acts, eps)
+        ref = fscan.scan_reference(_f64(dyn), cfg, *[a.double() for a in args],
+                                   acts, eps.double())
+    assert fscan.launch_kernel.launches == before + 1
+    assert (got[0].double() - ref[0]).abs().max().item() <= 1e-4
+    assert ((got[2].double() - ref[2]).abs()
+            / ref[2].abs().clamp_min(1.0)).max().item() <= 2e-5
+    assert (got[3].double() - ref[3]).abs().max().item() <= 1e-4
