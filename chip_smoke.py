@@ -1,24 +1,32 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100: `python3 chip_smoke.py`.
 
-Builds the port's four CUDA kernel sources from the checkout (one nvcc per
-library, all at once: the rollout source for the action-free model, the
-action-conditioned one, and each of them with the open-loop std head; the
-scan source per velocity mode and with actions and the reward head),
-holds each kernel against its plain PyTorch version on the card, runs
-`mode=eval` of the trained 3-ball billiards model (ckpts/r4rp_bill_s32,
+Builds every kernel library the run launches from the checkout's sources
+(one nvcc per library, all at once): the rollout source for the
+action-free model, the action-conditioned one and the open-loop std head,
+each in both of the TPU kernel's precisions (float32 on the CUDA cores,
+bfloat16 on the tensor cores) and at both tiles (16 samples a block, 4
+below 132 blocks); the scan source per velocity mode and with actions and
+the reward head, and in bfloat16 for the three models' training; the SPN
+and likelihood sources.  It holds each kernel against its plain PyTorch version on the card,
+runs `mode=eval` of the trained 3-ball billiards model (ckpts/r4rp_bill_s32,
 full width) and STOVE training at full width through the port's entry
 points, resumes the trained run through the kernels, times the kernels
 and the training step, then runs `mode=eval` and MCTS planning
 (`mode=mcts`) of the trained action-conditioned avoidance model
 (ckpts/r4a_dense_s2, full width) through the action-conditioned rollout
 kernel, trains that model from scratch and resumes it through the scan
-kernel with actions and the reward head, and runs `mode=eval` and resumed
+kernel with actions and the reward head, runs `mode=eval` and resumed
 training of the trained gravity model (ckpts/r4rp_grav_s32, full width)
-through the rollout kernel's open-loop std head.  One line per phase,
-with the seconds since start:
+through the rollout kernel's open-loop std head, holds the bfloat16
+libraries against the plain version at bfloat16, plans with bfloat16
+leaves (`mcts_rollout_impl=pallas`) and times every rollout library in
+both precisions.  Training with `scan_impl=pallas` runs the scan's bf16
+library forward, as the JAX package's `_scan_pallas` does.  One line per
+phase, with the seconds since start:
 
   (0) device      card name and power limit (nvidia-smi); TF32 off
-  (1) build       nvcc of every kernel library: seconds, registers, smem
+  (1) build       nvcc of every kernel library: seconds, registers, spills,
+                  dynamic shared memory
   (2) mean        kernel vs plain mean rollout, f32, trained weights, z0 from
                   the posterior of rendered frames: max |err| over steps 1-8
                   <= 1e-4 against the plain version in float32 and float64;
@@ -34,7 +42,8 @@ with the seconds since start:
                   (the 80-step speed ratio, past where float32 rollouts
                   drift apart, to 1e-2)
   (5) throughput  sampled kernel at B=16384, H=92 (then B=65536 if time
-                  allows): warm-up + 10 runs timed with CUDA events
+                  allows): warm-up + 10 runs timed with CUDA events; the
+                  bf16 library (the TPU kernel's perf path) at B=16384
   (6) spn         SPN kernel vs plain on one training step's object patches
                   (6144, 100) and frames (2048, 1024), trained weights and
                   region graphs: |err| <= 1e-5 * max(|log p|, 100)
@@ -47,9 +56,12 @@ with the seconds since start:
   (9) train       from scratch at full width through the entry point: 2
                   warm-up + 3 STOVE steps with the scan and likelihood
                   kernels, then 1 + 1 with the SPN kernel; losses finite,
-                  launches > 0; one batch's gradients kernel vs plain path,
-                  leaf by leaf, within 1e-3 of each leaf's largest entry
-                  (mixture logits: 1e-6 absolute, their scale being 1)
+                  launches > 0; one batch's gradients kernel vs plain path
+                  (the scan on its float32 library), leaf by leaf, within
+                  1e-3 of each leaf's largest entry or the plain path's own
+                  floor where that is higher (its gradient's change when
+                  the frames move by 1e-5); mixture logits: 1e-6 absolute,
+                  their scale being 1
   (10) resume     restore=ckpts/r4rp_bill_s32 mode=train num_epochs=361
                   through the kernels: 20 steps, mean elbo in [1197, 1248],
                   kl in [-10.5, -7.5] (the JAX package's own float32 value
@@ -101,7 +113,8 @@ with the seconds since start:
                   scan and likelihood kernels, every loss finite (the reward
                   and overshoot-reward losses too), launches > 0; one
                   batch's gradients kernel vs plain path to phase (9)'s
-                  limits, the reward heads' and action rows' nonzero
+                  limits and floor, the reward heads' and action rows'
+                  nonzero
   (19) avoid-resume restore=ckpts/r4a_dense_s2 mode=train for 20 steps
                   through the kernels: mean elbo, kl and reward_loss inside
                   AVOID_RESUME_BAND (the JAX package's float32 values at
@@ -138,9 +151,46 @@ with the seconds since start:
                   rollout at B=16384, H=92 (CUDA events), each beside its
                   bound and plain version; the launches of each new path
 
+  (24) bf16      each bf16 rollout library against the plain version at
+                  bf16 over 4 steps -- billiards from phase (2)'s posterior
+                  states and avoidance with random actions (and rewards), at
+                  B=16384 (16 samples a block) and the planner's B=576 (4):
+                  at every step the median of |kernel - plain bf16| over the
+                  step and over each state column's (sample, object)
+                  entries at most 0.1x that of |plain bf16 - plain f32|,
+                  the largest |kernel - plain bf16| at most 2x the largest
+                  |plain bf16 - plain f32|, at most 1e-2 of the entries
+                  (rewards 3e-2, or one (sample, object) row's where that
+                  is more) above 0.1x that largest distance; the float32
+                  libraries at
+                  B=16384, H=8: step 1 within 1e-4 of the float32 and float64
+                  plain versions, the 8-step distance from float64 at most
+                  2x the float32 plain version's, rewards within 1e-4; each
+                  precision's open-loop head by the implied std of phase
+                  (20) (median relative error <= 1e-2; float32's maximum
+                  too); the bf16 scan library against the plain loop at
+                  bf16 on each model's posterior windows, by the same
+                  criterion (z, z_mean, rewards; kl by the median and the
+                  2x maximum)
+  (25) plan-bf16  mode=mcts of ckpts/r4a_dense_s2 with
+                  mcts_rollout_impl=pallas (leaves in bf16, steps in
+                  float32), 16 episodes of 40 steps: phase (15)'s limits,
+                  one bf16 small-tile leaf launch and one float32 step a
+                  round
+  (26) timing5    every rollout library at its paths' launch shapes --
+                  B=16384 H=92 sampled and mean, the planner's leaf (576,
+                  10) and step (576, 1), the eval's (100, 8) and (32, 80),
+                  the open head at (16384, 92) and (32, 80) sampled --
+                  float32 and bf16 in turns (f32, bf16, bf16, f32), each
+                  beside its plain version at that precision and its bound;
+                  the bf16 and velocity-mode scan libraries at their
+                  training shapes
+
 Any failed check raises, so the script exits non-zero and prints no result.
-The last three lines are the kernel table (JSON), the card's name and power
-limit, and the result JSON.  Writes nothing into the repository but the
+The last three lines are the kernel table (JSON; one entry per library,
+its launches counted on the main paths -- every run through the entry
+points and phase (5)'s throughput measurement -- by the wrappers' counts
+by library), the card's name and power limit, and the result JSON.  Writes nothing into the repository but the
 git-ignored build directory; runs write to a temporary directory.  Imports
 nothing of JAX or the JAX package.
 """
@@ -148,6 +198,7 @@ nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -272,32 +323,43 @@ def main() -> int:
     acfg = ckpt_lib.load_config(AVOID)
     gcfg = ckpt_lib.load_config(GRAV)
     ocfg = acfg.with_overrides(open_loop_sigma=True)
-    jobs = [fr.job(cfg), fr.job(acfg), fscan.job(cfg),
-            fscan.job(cfg.with_overrides(velocity_obs_full_std=False)),
-            fscan.job(cfg.with_overrides(velocity_obs="filtered")),
-            fspn.job(sspecs.obj), fspn.job(sspecs.bg),
-            flik.job(cfg, sspecs), fscan.job(acfg), fscan.job(gcfg),
-            fr.job(gcfg, True), fr.job(ocfg, True)]
+    count_main_paths()
+    loaders = {}
+    for c, op, dts, tiles in ((cfg, False, fr.DTYPES, (16, 4)),
+                              (acfg, False, fr.DTYPES, (16, 4)),
+                              (gcfg, True, fr.DTYPES, (16, 4)),
+                              (ocfg, True, ("float32",), (4,))):
+        for dt in dts:
+            for tile in tiles:
+                if (c, op, dt, tile) == (gcfg, True, "bfloat16", 4):
+                    continue           # no path launches it
+                loaders[fr.job(c, op, dt, tile)] = (
+                    lambda c=c, op=op, dt=dt, tile=tile: fr.load(
+                        c, op, dt, tile).stove_rollout_smem_bytes())
+    for c, dts in ((cfg, fr.DTYPES), (acfg, fr.DTYPES), (gcfg, fr.DTYPES),
+                   (cfg.with_overrides(velocity_obs_full_std=False),
+                    ("float32",)),
+                   (cfg.with_overrides(velocity_obs="filtered"),
+                    ("float32",))):
+        for dt in dts:
+            loaders[fscan.job(c, dt)] = (
+                lambda c=c, dt=dt: fscan.load(c, dt).stove_scan_smem_bytes())
+    for spec in (sspecs.obj, sspecs.bg):
+        loaders[fspn.job(spec)] = (
+            lambda spec=spec: fspn.load(spec).stove_spn_smem_bytes())
+    loaders[flik.job(cfg, sspecs)] = (
+        lambda: flik.load(cfg, sspecs).stove_lik_smem_bytes())
+    jobs = list(loaders)
     t = time.perf_counter()
     paths = _build.build(jobs)
     phase("build", f"{len(jobs)} libraries in {time.perf_counter() - t:.1f} s")
-    for (src, defines), path in zip(jobs, paths):
+    for job_, path in zip(jobs, paths):
         secs = _build.BUILDS.get(str(path), (0.0, ""))[0]
-        phase("build", f"{src} {' '.join(defines)}: nvcc {secs:.1f} s; "
-              f"{_build.ptxas_report(path) or 'already built'}")
-    lib = fr.load(cfg)
-    phase("build", f"smem per block: rollout {lib.stove_rollout_smem_bytes()} "
-          f"B (with actions and reward head "
-          f"{fr.load(acfg).stove_rollout_smem_bytes()}"
-          f" B), scan {fscan.load(cfg).stove_scan_smem_bytes()} B, spn obj "
-          f"{fspn.load(sspecs.obj).stove_spn_smem_bytes()} B / bg "
-          f"{fspn.load(sspecs.bg).stove_spn_smem_bytes()} B, likelihood "
-          f"{flik.load(cfg, sspecs).stove_lik_smem_bytes()} B; scan with "
-          f"actions and reward head {fscan.load(acfg).stove_scan_smem_bytes()}"
-          f" B, rollout with the open-loop head "
-          f"{fr.load(gcfg, True).stove_rollout_smem_bytes()} B (with actions"
-          f" and reward head too "
-          f"{fr.load(ocfg, True).stove_rollout_smem_bytes()} B)")
+        report = _build.ptxas_report(path)
+        smem = loaders[job_]()
+        note(job_, ptxas=report, smem_bytes=smem)
+        phase("build", f"{job_[0]} {' '.join(job_[1])}: nvcc {secs:.1f} s; "
+              f"{report or 'already built'}; dynamic smem {smem} B")
 
     # ---- (2) mean path, z0 from the posterior of rendered frames
     dyn = model.params["dynamics"]
@@ -379,8 +441,11 @@ def main() -> int:
             phase("throughput", f"B={B} skipped: time budget")
             continue
         z0 = z_post.repeat(B // 16384, 1, 1).contiguous()
+        snap = library_counts()
         ms = time_cuda(lambda: fr.rollout_states(
             dyn, cfg, z0, 92, True, gen5, model.prepared), iters=10)
+        for k, v in counted_since(snap).items():
+            MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
         times[B] = ms
         phase("throughput", f"sampled kernel B={B} H=92: {ms:.3f} ms/call, "
               f"{B * 92 / ms * 1e3:,.0f} frames/s on {card}")
@@ -390,86 +455,123 @@ def main() -> int:
     plain_ms = time_cuda(lambda: fr.rollout_states_reference(
         dyn, cfg, z0, 92, noise), iters=3)
     flops = 2.0 * macs * B * 92
-    nbytes = 4.0 * (z0.numel() * (1 + 92) + model.prepared.numel())
-    bound_ms = max(flops / 67e12, nbytes / 3.35e12) * 1e3
+    nbytes = 4.0 * z0.numel() * (1 + 92) + model.prepared.numel()
+    bound_ms, _ = rollout_bound(flops, nbytes, "float32")
     phase("throughput", f"plain version B={B} H=92: {plain_ms:.3f} ms/call; "
-          f"{macs} MACs/frame, bound {bound_ms:.3f} ms (f32 67 TFLOP/s), "
-          f"bf16 tensor-core bound {flops / 989e12 * 1e3:.3f} ms; kernel at "
+          f"{macs} MACs/frame, bound {bound_ms:.3f} ms (f32 67 TFLOP/s), bf16 "
+          f"tensor-core bound {flops / BF16_PEAK * 1e3:.3f} ms; kernel at "
           f"{flops / (times[B] * 1e-3) / 1e12:.2f} TFLOP/s")
+    # the TPU kernel's perf path (bench.py:199-205): the bf16 library
+    pb = model.prepared_for("bfloat16")
+    snap = library_counts()
+    bf_ms = time_cuda(lambda: fr.rollout_states(
+        dyn, cfg, z0, 92, True, gen5, pb, "bfloat16"), iters=10)
+    for k, v in counted_since(snap).items():
+        MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
+    times["bf16"] = bf_ms
+    phase("throughput", f"sampled bf16 kernel B={B} H=92: {bf_ms:.3f} ms/call"
+          f", {B * 92 / bf_ms * 1e3:,.0f} frames/s on {card}")
 
+
+    note(fr.job(cfg, False, "float32", 4), err=max_err)
+    note(fr.job(cfg, False, "float32", 16), ms=times[B], plain_ms=plain_ms,
+         bound=(bound_ms, "operations"),
+         shape={"model": "billiards", "B": B, "H": 92, "sample": True},
+         ms_b65536=times.get(65536))
 
     act = avoidance_slice(card, dev)
-    rollout_entry = {
-        "name": "rollout_states", "route": "cuda",
-        "source": "stove_tpu_torch/csrc/rollout.cu",
-        "replaces": "stove_tpu/ops/pallas_rollout.py:433",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": times[B], "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations", "library_ms": None,
-        "shape": {"B": B, "H": 92, "sample": True},
-        "ms_b65536": times.get(65536)}
-
+    note(fr.job(acfg, False, "float32", 4), err=act["entry"]["max_abs_err"],
+         err_rewards=act["entry"]["max_abs_err_rewards"])
     tr = training_slice(card, dev, cfg, model)
-    n = tr["launches"]
-    kernels = [rollout_entry, act["entry"]]
-    for name, src, rep, key, err, launch, shape in (
-            ("scan_fused", "stove_tpu_torch/csrc/scan.cu",
-             "stove_tpu/ops/pallas_scan.py:214", "scan", tr["scan_err"],
-             n["scan"], {"B": 256, "T2": 6}),
-            ("spn_log_prob_fused", "stove_tpu_torch/csrc/spn.cu",
-             "stove_tpu/ops/pallas_spn.py:204", "spn", tr["spn_err"],
-             n["spn"], {"obj": [6144, 100], "bg": [2048, 1024]}),
-            ("likelihood_fused", "stove_tpu_torch/csrc/likelihood.cu",
-             "stove_tpu/ops/pallas_likelihood.py:233", "likelihood",
-             tr["lik_err"], n["likelihood"], {"frames": 2048, "objects": 3})):
-        ms, by = tr[{"scan": "scan_bound", "spn": "spn_bound",
-                     "likelihood": "lik_bound"}[key]]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launch, "max_abs_err": err, "ms": tr[key + "_ms"],
-            "plain_ms": tr[key + "_plain_ms"], "bound_ms": ms,
-            "bound_by": by, "library_ms": None, "shape": shape})
+    note(fspn.job(sspecs.obj), err=tr["spn_err"])
+    note(fspn.job(sspecs.bg), err=tr["spn_err"])
+    note(flik.job(cfg, sspecs), err=tr["lik_err"], ms=tr["likelihood_ms"],
+         plain_ms=tr["likelihood_plain_ms"], bound=tr["lik_bound"],
+         shape={"frames": 2048, "objects": 3})
+    for spec in (sspecs.obj, sspecs.bg):
+        note(fspn.job(spec), ms=tr["spn_ms"], plain_ms=tr["spn_plain_ms"],
+             bound=tr["spn_bound"], shape={"obj": [6144, 100],
+                                           "bg": [2048, 1024],
+                                           "timed": "obj and bg together"})
+    note(fscan.job(cfg), ms=tr["scan_ms"], plain_ms=tr["scan_plain_ms"],
+         bound=tr["scan_bound"], shape={"model": "billiards", "B": 256,
+                                        "T2": 6})
     four = fourth_slice(card, dev)
     ti = four["timing"]
-    for name, src, rep, key, err, launch, shape in (
-            ("scan_fused[actions, reward head]",
-             "stove_tpu_torch/csrc/scan.cu", "stove_tpu/ops/pallas_scan.py:214",
-             "scan_avoid", four["scan_act_err"],
-             four["launches_avoid_train"]["scan"]
-             + four["launches_avoid_resume"]["scan"], {"B": 256, "T2": 10}),
-            ("scan_fused[gravity window]", "stove_tpu_torch/csrc/scan.cu",
-             "stove_tpu/ops/pallas_scan.py:214", "scan_grav",
-             four["scan_grav_err"], four["launches_grav_train"]["scan"],
-             {"B": 256, "T2": 14}),
-            ("rollout_states[open-loop std head]",
-             "stove_tpu_torch/csrc/rollout.cu",
-             "stove_tpu/ops/pallas_rollout.py:433", "open",
-             four["open_std_err"], four["open_launches_eval"]
-             + four["open_launches_train"],
-             {"B": 16384, "H": 92, "sample": True})):
-        k_ms, p_ms, b_ms, by = ti[key]
+    note(fscan.job(acfg), err=four["scan_act_err"],
+         err_rewards=four["scan_act_rew_err"], ms=ti["scan_avoid"][0],
+         plain_ms=ti["scan_avoid"][1], bound=ti["scan_avoid"][2:],
+         shape={"model": "avoidance", "B": 256, "T2": 10})
+    note(fscan.job(gcfg), err=four["scan_grav_err"], ms=ti["scan_grav"][0],
+         plain_ms=ti["scan_grav"][1], bound=ti["scan_grav"][2:],
+         shape={"model": "gravity", "B": 256, "T2": 14})
+    note(fr.job(gcfg, True, "float32", 16), err=four["open_std_err"],
+         ms=ti["open"][0], plain_ms=ti["open"][1], bound=ti["open"][2:],
+         shape={"model": "gravity", "B": 16384, "H": 92, "sample": True})
+    note(fr.job(ocfg, True, "float32", 4), err=four["act_open_rew_err"],
+         ms=four["act_open_ms"], plain_ms=four["act_open_plain_ms"],
+         bound=four["act_open_bound"],
+         shape={"model": "avoidance + random open head", "B": 576, "H": 10,
+                "sample": True})
+    five = fifth_slice(card, dev, model, z_post)
+
+    # one entry per kernel library: the TPU kernel it replaces, its
+    # launches on the main paths (every run through the entry points, and
+    # the throughput measurement of phase (5)), its largest error against
+    # its plain version in this run, and its time at the shape named
+    names = {"rollout.cu": ("rollout", "stove_tpu/ops/pallas_rollout.py:"),
+             "scan.cu": ("scan_fused", "stove_tpu/ops/pallas_scan.py:214"),
+             "spn.cu": ("spn_log_prob_fused",
+                        "stove_tpu/ops/pallas_spn.py:204"),
+             "likelihood.cu": ("likelihood_fused",
+                               "stove_tpu/ops/pallas_likelihood.py:233")}
+    kernels = []
+    for (src, defines) in jobs:
+        key = lib_key((src, defines))
+        f = LIBS.get(key, {})
+        d = " ".join(defines)
+        name, rep = names[src]
+        if src == "rollout.cu":
+            act_ = "-DSTOVE_ACT=1" in d
+            name = "rollout_act" if act_ else "rollout_states"
+            rep += "484" if act_ else "433"
+        if src in ("spn.cu", "likelihood.cu"):
+            launches = MAIN_PATH.get(src, 0) // (2 if src == "spn.cu" else 1)
+        else:
+            launches = MAIN_PATH.get(key, 0)
+        check("ms" in f and "err" in f, f"library {key} measured")
+        b_ms, by = f["bound"]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launch, "max_abs_err": err, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None, "shape": shape})
-    kernels[5]["max_abs_err_rewards"] = four["scan_act_rew_err"]
-    kernels[1]["open_head_variant"] = {
-        "defines": "-DSTOVE_ACT=1 -DSTOVE_NA=9 -DSTOVE_REW=1 -DSTOVE_OPEN=1",
-        "launches": 1, "main_path": None, "shape": {"B": 576, "H": 10,
-                                                     "sample": True},
-        "max_abs_err_rewards": four["act_open_rew_err"]}
-    kernels[4]["launches_by_path"] = {
-        "avoid_train": four["launches_avoid_train"]["likelihood"],
-        "avoid_resume": four["launches_avoid_resume"]["likelihood"],
-        "grav_train": four["launches_grav_train"]["likelihood"]}
+            "name": f"{name}[{d}]", "route": "cuda",
+            "source": f"stove_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": launches, "max_abs_err": f["err"], "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "shape": f.get("shape"),
+            "ptxas": f.get("ptxas"), "smem_bytes": f.get("smem_bytes"),
+            **{k: v for k, v in f.items()
+               if k not in ("err", "ms", "plain_ms", "bound", "shape",
+                            "ptxas", "smem_bytes")}})
+    on_path = [k for k in kernels if k["launches"] > 0]
+    phase("kernels", f"{len(kernels)} libraries, {len(on_path)} launched on "
+          f"the main paths: " + ", ".join(
+              f"{k['name']} {k['launches']}" for k in kernels))
+    check(all(MAIN_PATH.get(lib_key(j), 0) > 0 for j in (
+        fr.job(cfg, False, "float32", 4), fr.job(acfg, False, "float32", 4),
+        fr.job(acfg, False, "bfloat16", 4), fr.job(gcfg, True, "float32", 4),
+        fscan.job(cfg, "bfloat16"), fscan.job(acfg, "bfloat16"),
+        fscan.job(gcfg, "bfloat16"), fr.job(cfg, False, "bfloat16", 16))),
+        "every path launched its libraries")
     print(json.dumps({"kernels": kernels, "train_step_ms": {
         k: tr[f"step_{k}"] for k in ("kernels", "plain")},
         "resume": tr["resume"], "avoidance_eval": act["eval"],
-        "planning": act["plan"], "avoidance_resume": four["avoid_resume"],
+        "planning": act["plan"], "planning_bf16_leaves": five["plan_bf16"],
+        "avoidance_resume": four["avoid_resume"],
         "gravity_eval": four["grav_eval"],
         "gravity_eval_sampled": four["grav_eval_sampled"],
-        "gravity_resume": four["grav_resume"]}))
+        "gravity_resume": four["grav_resume"],
+        "rollout_timing": five["timing"],
+        "throughput_ms": {"float32": times[B], "bfloat16": times["bf16"]}},
+        default=str))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -478,7 +580,7 @@ def main() -> int:
 
 
 def plain_rollout(dyn_params, c, z0, horizon, sample=True, generator=None,
-                  prepared=None, actions=None):
+                  prepared=None, actions=None, dtype="float32"):
     """fused_rollout.rollout's signature on the plain version, on the card."""
     import torch
     from stove_tpu_torch.ops import fused_rollout as fr
@@ -487,7 +589,7 @@ def plain_rollout(dyn_params, c, z0, horizon, sample=True, generator=None,
         noise = torch.randn((z0.shape[0], horizon) + tuple(z0.shape[1:]),
                             generator=generator, dtype=z0.dtype).to(z0)
     return fr.rollout_states_reference(dyn_params, c, z0, horizon, noise,
-                                       actions)
+                                       actions, dtype)
 
 
 def compare_plain_eval(name: str, m: dict, ecfg, edev, launches: int) -> dict:
@@ -536,17 +638,125 @@ def compare_plain_eval(name: str, m: dict, ecfg, edev, launches: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# every kernel library: what the run measured of it, and its launches on
+# the main paths
+# ---------------------------------------------------------------------------
+
+LIBS: dict = {}               # " ".join(source, defines) -> measured fields
+MAIN_PATH: dict = {}          # the same key -> launches on the main paths
+
+
+def lib_key(job) -> str:
+    return " ".join((job[0],) + tuple(job[1]))
+
+
+def note(job, **fields) -> None:
+    """Record measured fields (err, ms, plain_ms, bound, shape, ...) of
+    the library `job` builds."""
+    LIBS.setdefault(lib_key(job), {}).update(fields)
+
+
+def library_counts() -> dict:
+    """The rollout and scan wrappers' launch counts by library."""
+    from stove_tpu_torch.ops import fused_likelihood as flik
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.ops import fused_scan as fscan
+    from stove_tpu_torch.ops import fused_spn as fspn
+    out = {f"rollout.cu {k}": v for k, v in fr.launch_kernel.by_library.items()}
+    out.update({f"scan.cu {k}": v
+                for k, v in fscan.launch_kernel.by_library.items()})
+    out["spn.cu"] = fspn.launch_kernel.launches
+    out["likelihood.cu"] = flik.launch_kernel.launches
+    return out
+
+
+def counted_since(snap: dict) -> dict:
+    now = library_counts()
+    return {k: v - snap.get(k, 0) for k, v in now.items()
+            if v - snap.get(k, 0)}
+
+
+def count_main_paths() -> None:
+    """Add the launches of every run through the entry points (mode=eval,
+    mode=train, mode=mcts) to MAIN_PATH, by library."""
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch.planning import runner
+
+    def counted(fn):
+        def run(*a, **k):
+            snap = library_counts()
+            try:
+                return fn(*a, **k)
+            finally:
+                for key, v in counted_since(snap).items():
+                    MAIN_PATH[key] = MAIN_PATH.get(key, 0) + v
+        return run
+
+    entry.run_eval = counted(entry.run_eval)
+    entry.run_train = counted(entry.run_train)
+    runner.run_planning = counted(runner.run_planning)
+
+
+@contextlib.contextmanager
+def float32_scan():
+    """Within the block, the scan dispatch (`scan_impl=pallas`) launches the
+    scan's float32 library where a run launches its bfloat16 one
+    (`fused_scan.scan_kernel`'s dtype): the gradient checks (9) and (18)
+    hold the kernel path to the float32 plain path at float32's noise."""
+    from stove_tpu_torch.ops import fused_scan as fscan
+    real = fscan.scan_kernel
+    fscan.scan_kernel = functools.partial(real, dtype="float32")
+    try:
+        yield
+    finally:
+        fscan.scan_kernel = real
+
+
+def frames_floor(grads, batch, plain_cfg, paths, g_plain, absolute, dev):
+    """The plain path's own gradient noise: the largest change, over the
+    leaves not held `absolute`ly and per a leaf's largest entry, of the
+    plain path's gradient when the frames move by 1e-5 (the scan kernel's
+    distance from its plain version, phases (8) and (17)).  A bilinear
+    glimpse's gradient jumps where a sample point crosses a pixel centre,
+    and a batch holds ~10^6 sample points, so a forward that moves by
+    float32 rounding moves the gradient by this much."""
+    import torch
+    clean = batch["frames"]
+    batch["frames"] = clean + 1e-5 * torch.randn(
+        clean.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(5))
+    g_moved = grads(plain_cfg)
+    batch["frames"] = clean
+    floor = 0.0
+    for path, b, q in zip(paths, g_plain, g_moved):
+        if b is not None and not absolute(path):
+            floor = max(floor, (q - b).abs().max().item()
+                        / (b.abs().max().item() or 1.0))
+    return floor
+
+
+# ---------------------------------------------------------------------------
 # the training slice: SPN, likelihood and scan kernels, training, resume
 # ---------------------------------------------------------------------------
 
 F32_PEAK, HBM_RATE = 67e12, 3.35e12        # H100 SXM, f32 CUDA cores, HBM3
+BF16_PEAK = 989e12                         # dense bf16 tensor cores
 
 
-def bound(flops: float, nbytes: float):
-    """(ms, "operations" | "bytes"): the least time for the work."""
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+def bound(flops: float, nbytes: float, peak: float = F32_PEAK):
+    """(ms, "operations" | "bytes"): the least time for the work, its
+    operations at `peak` FLOP/s or its bytes at the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def rollout_bound(flops: float, nbytes: float, dtype: str):
+    """The rollout library's bound: its matmul operations at their type's
+    peak -- bf16 on the tensor cores, f32 on the CUDA cores (the float32
+    library's FMA) -- or its bytes."""
+    return bound(flops, nbytes,
+                 BF16_PEAK if dtype == "bfloat16" else F32_PEAK)
 
 
 def spn_flops(spec) -> float:
@@ -765,6 +975,7 @@ def training_slice(card: str, dev, cfg, model) -> dict:
             check(ez <= lim and ez64 <= lim, f"scan kernel z error ({label})")
             check(ekl <= 2e-5, f"scan kernel kl error ({label})")
             worst[label] = ez
+            note(fscan.job(c2), err=ez)
     out["scan_err"] = worst["trained, velocity_obs_full_std"]
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -817,17 +1028,21 @@ def training_slice(card: str, dev, cfg, model) -> dict:
     check(n_spn_b > 0 and math.isfinite(res_b["loss"]), "spn path ran")
     out["launches"] = {"scan": n_scan, "likelihood": n_lik, "spn": n_spn_b}
 
-    # one batch, the same noise: kernel-path gradients vs plain-path ones.
-    # The backward is the plain version's VJP at the kernel forward's
-    # inputs, which differ from the plain forward's by ~1e-5 (phase 8).
-    # The gradient of a bilinear glimpse jumps where a sample point crosses
-    # a pixel centre, so the few samples that cross between the two
-    # forwards change the box gradients, and through them the dynamics',
-    # in steps (3.2e-4 of a leaf's largest entry in one run, 2e-6 in
-    # another): each leaf is held to 1e-3 of its largest entry.  A mixture
-    # logit's gradient is a mean over the B*T frames of (responsibility -
-    # weight), in [-1, 1] whatever its size (saturated mixtures give
-    # ~1e-8), so the sum and root logits are held to 1e-6 of that scale.
+    # one batch, the same noise: kernel-path gradients vs plain-path ones,
+    # the scan on its float32 library (float32_scan; the bf16 forward the
+    # weights were trained by is held by phase (24)).  The backward is the
+    # plain version's VJP at the kernel forward's inputs, which differ from
+    # the plain forward's by ~1e-5 (phase 8), and the gradient of a
+    # bilinear glimpse jumps where a sample point crosses a pixel centre,
+    # so the few samples that cross between the two forwards change the
+    # box gradients, and through them the dynamics', in steps: each leaf is
+    # held to 1e-3 of its largest entry, raised to the plain path's own
+    # floor (frames_floor) where that is higher, as phase (18) does (one
+    # run saw 1.13x of 1e-3 at weights trained by the bf16 forward).  A
+    # mixture logit's gradient is a mean over the B*T frames of
+    # (responsibility - weight), in [-1, 1] whatever its size (saturated
+    # mixtures give ~1e-8), so the sum and root logits are held to 1e-6 of
+    # that scale.
     tr = tr_a
     batch = data_lib.sample_windows(tr.train_ep, cfg_a,
                                     torch.Generator(device=dev).manual_seed(3),
@@ -842,19 +1057,22 @@ def training_slice(card: str, dev, cfg, model) -> dict:
         return torch.autograd.grad(loss, leaves, allow_unused=True)
 
     plain_cfg = cfg_a.with_overrides(scan_impl="xla", likelihood_impl="xla")
-    g_k = grads(cfg_a)
+    with float32_scan():
+        g_k = grads(cfg_a)
     g_p = grads(plain_cfg)
     g_p2 = grads(plain_cfg)
     g_s = grads(plain_cfg.with_overrides(spn_impl="pallas"))
+    paths = [p for p, _ in tree.paths(tr.params)]
+    logits = lambda path: "logits" in str(path[-1])  # noqa: E731
+    floor = frames_floor(grads, batch, plain_cfg, paths, g_p, logits, dev)
+    lim_rel = max(1e-3, floor)
     rows_g = []
-    for (path, _), a, b, b2, s in zip(tree.paths(tr.params), g_k, g_p, g_p2,
-                                      g_s):
+    for path, a, b, b2, s in zip(paths, g_k, g_p, g_p2, g_s):
         if b is None:
             check(a is None and s is None, f"gradient presence {path}")
             continue
-        scale = (1.0 if "logits" in str(path[-1])
-                 else b.abs().max().item() or 1.0)
-        lim = 1e-6 if "logits" in str(path[-1]) else 1e-3
+        scale = 1.0 if logits(path) else b.abs().max().item() or 1.0
+        lim = 1e-6 if logits(path) else lim_rel
         rows_g.append(((a - b).abs().max().item() / scale / lim,
                        (s - b).abs().max().item() / scale / lim,
                        (b2 - b).abs().max().item() / scale, scale,
@@ -866,9 +1084,15 @@ def training_slice(card: str, dev, cfg, model) -> dict:
               f"twice {r[2]:.2e} of scale); scale {r[3]:.3e}")
     worst_g = max(r[0] for r in rows_g)
     worst_s = max(r[1] for r in rows_g)
+    worst_rel = max(r[0] * lim_rel for r in rows_g if "logits" not in r[4])
     phase("train", f"gradients on one batch, same noise, {len(rows_g)} "
-          f"leaves: worst share of the limit, scan+likelihood kernels "
-          f"{worst_g:.2e}, spn kernel {worst_s:.2e}")
+          f"leaves: the plain path's own floor (frames moved by 1e-5) "
+          f"{floor:.2e} of a leaf's largest entry, limit {lim_rel:.2e}; "
+          f"worst share of the limit, scan+likelihood kernels "
+          f"{worst_g:.2e}, spn kernel {worst_s:.2e}; largest |kernel - "
+          f"plain| of a leaf other than the logits {worst_rel:.2e} of its "
+          f"largest entry")
+    out["grad_floor"] = floor
     check(worst_g <= 1.0 and worst_s <= 1.0, "kernel-path gradients")
 
     # ---- (10) resume the trained run through the kernels for one epoch of
@@ -1263,14 +1487,14 @@ def avoidance_slice(card: str, dev) -> dict:
         p_ms = time_cuda(lambda: fr.rollout_states_reference(
             dyn, cfg, z0, H, noise, acts), iters=5 if B < 1000 else 2)
         flops = 2.0 * macs * B * H
-        nbytes = 4.0 * (z0.numel() * (1 + H) + B * H * 2 + prep.numel())
-        b_ms, by = bound(flops, nbytes)
+        nbytes = 4.0 * (z0.numel() * (1 + H) + B * H * 2) + prep.numel()
+        b_ms, by = rollout_bound(flops, nbytes, "float32")
         times[(B, H)] = (k_ms, p_ms, b_ms, by)
         phase("act-timing", f"B={B} H={H} {'sampled' if smp else 'mean'}: "
               f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} "
               f"ms ({by}; {macs} MACs/frame), kernel at {100 * b_ms / k_ms:.1f}"
               f"% of the bound, {flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s, "
-              f"{(B + 15) // 16} blocks on {card}")
+              f"{-(-B // fr.tile_for(B))} blocks on {card}")
     k_ms, p_ms, b_ms, by = times[leaf]
     entry_ = {
         "name": "rollout_act", "route": "cuda",
@@ -1305,20 +1529,24 @@ def avoidance_slice(card: str, dev) -> dict:
 
 @contextlib.contextmanager
 def recording_rollouts(shapes):
-    """Count the rollout launches by (B, H, sampled, open-loop head) while
-    the block runs.  The wrapper stands in for fused_rollout.launch_kernel;
-    the launch counter that launch_kernel increments is the wrapper's while
-    it stands, and is handed back after."""
+    """Count the rollout launches by (B, H, sampled, open-loop head) -- and
+    precision, where it is bf16 -- while the block runs.  The wrapper stands
+    in for fused_rollout.launch_kernel; the launch counter that
+    launch_kernel increments is the wrapper's while it stands, and is
+    handed back after (its counts by library stay launch_kernel's)."""
     from stove_tpu_torch.ops import fused_rollout as fr
     real = fr.launch_kernel
 
     def recorded(prepared, c, z0, horizon, sample, seed, actions=None,
-                 open_head=False):
+                 open_head=False, dtype="float32"):
         key = (z0.shape[0], horizon, bool(sample), bool(open_head))
+        if dtype != "float32":
+            key += (dtype,)
         shapes[key] = shapes.get(key, 0) + 1
         return real(prepared, c, z0, horizon, sample, seed, actions,
-                    open_head)
+                    open_head, dtype)
     recorded.launches = real.launches
+    recorded.by_library = real.by_library
     fr.launch_kernel = recorded
     try:
         yield
@@ -1541,18 +1769,13 @@ def fourth_slice(card: str, dev) -> dict:
     out["launches_avoid_train"] = n
 
     # one batch, the same noise: kernel-path gradients against plain-path
-    # ones, leaf by leaf, to phase (9)'s limits, raised to the plain path's
-    # own noise floor where that is higher; the reward heads' and the
-    # action rows' gradients must be nonzero.  The floor: the plain path's
-    # gradient moves when its forward moves by what float32 rounding moves
-    # it (a bilinear glimpse's gradient jumps where a sample point crosses
-    # a pixel centre, and 12-frame windows of 256 sequences hold ~10^6
-    # sample points).  It is measured here as the largest change, over the
-    # leaves, of the plain path's gradient when the frames move by 1e-5
-    # (the scan kernel's own distance from the plain version, phase (17));
-    # on the card it was 1.7e-3 of a leaf's largest entry for 1e-6 and
-    # 2.9e-3 for 1e-5, above phase (9)'s 1e-3, and the plain path run twice
-    # gave 1.4e-6.  The reward attention's last bias shifts every object's
+    # ones (the scan on its float32 library, float32_scan), leaf by leaf,
+    # to phase (9)'s limits, raised to the plain path's own noise floor
+    # where that is higher (frames_floor); the reward heads' and the
+    # action rows' gradients must be nonzero.  On the card the floor was
+    # 1.7e-3 of a leaf's largest entry for frames moved by 1e-6 and 2.9e-3
+    # for 1e-5, above phase (9)'s 1e-3, and the plain path run twice gave
+    # 1.4e-6.  The reward attention's last bias shifts every object's
     # softmax logit alike, so its gradient is zero up to rounding (~2e-9):
     # like a mixture logit, it is held to 1e-6 absolute.
     B, T = cfg_a.batch_size, cfg_a.window
@@ -1570,29 +1793,26 @@ def fourth_slice(card: str, dev) -> dict:
         return torch.autograd.grad(loss, leaves, allow_unused=True)
 
     plain_a = cfg_a.with_overrides(scan_impl="xla", likelihood_impl="xla")
-    g_k = grads(cfg_a)
+    with float32_scan():
+        g_k = grads(cfg_a)
     g_p = grads(plain_a)
-    clean = batch["frames"]
-    batch["frames"] = clean + 1e-5 * torch.randn(
-        clean.shape, device=dev, generator=torch.Generator(
-            device=dev).manual_seed(5))
-    g_q = grads(plain_a)
-    batch["frames"] = clean
-    rows_g, named, floor = [], {}, 0.0
-    for (path, _), a, b, q in zip(tree.paths(tr_a.params), g_k, g_p, g_q):
+    paths = [p for p, _ in tree.paths(tr_a.params)]
+    absolute = lambda path: ("logits" in str(path[-1])  # noqa: E731
+                             or tree.keystr(path).endswith(
+                                 "['reward_att'][2]['b']"))
+    floor = frames_floor(grads, batch, plain_a, paths, g_p, absolute, dev)
+    rows_g, named = [], {}
+    for path, a, b in zip(paths, g_k, g_p):
         key = tree.keystr(path)
         named[key] = a
         if b is None:
             check(a is None, f"gradient presence {key}")
             continue
-        absolute = ("logits" in str(path[-1])
-                    or key.endswith("['reward_att'][2]['b']"))
-        scale = 1.0 if absolute else (b.abs().max().item() or 1.0)
-        if not absolute:
-            floor = max(floor, (q - b).abs().max().item() / scale)
+        scale = 1.0 if absolute(path) else (b.abs().max().item() or 1.0)
         rows_g.append(((a - b).abs().max().item() / scale, scale, key,
-                       absolute))
+                       absolute(path)))
     lim_rel = max(1e-3, floor)
+    worst_rel = max(d for d, _, _, ab in rows_g if not ab)
     rows_g = sorted(((d / (1e-6 if ab else lim_rel), sc, k)
                      for d, sc, k, ab in rows_g), reverse=True)
     for r in rows_g[:3]:
@@ -1600,7 +1820,8 @@ def fourth_slice(card: str, dev) -> dict:
               f"{r[0]:.2e} of its limit; scale {r[1]:.3e}")
     phase("avoid-train", f"the plain path's own floor (frames moved by "
           f"1e-5): {floor:.2e} of a leaf's largest entry; limit "
-          f"{lim_rel:.2e}")
+          f"{lim_rel:.2e}; largest |kernel - plain| of a leaf held "
+          f"relatively {worst_rel:.2e} of its largest entry")
     # every reward-head leaf but the attention's last bias, which shifts
     # all objects' softmax logits alike and so has no gradient
     reward_g = [v for k, v in named.items() if "reward" in k
@@ -1726,8 +1947,8 @@ def fourth_slice(card: str, dev) -> dict:
         acfg.with_overrides(open_loop_sigma=True),
         torch.Generator().manual_seed(23), dev)["open"])
     oprep = fr.prepare_params(odyn, ocfg)
-    check(oprep.numel() == fr.param_count(ocfg, True) > fr.param_count(acfg),
-          "the open head's packed buffer")
+    check(oprep.numel() == fr.kernel_bytes(ocfg, True)
+          > fr.kernel_bytes(acfg), "the open head's packed buffer")
     a_post = a_args[0]                               # posterior z1, 256 rows
     z0 = a_post[torch.arange(576, device=dev) % a_post.shape[0]].contiguous()
     acts = torch.randint(0, acfg.num_actions, (576, 10), device=dev,
@@ -1749,6 +1970,15 @@ def fourth_slice(card: str, dev) -> dict:
           f"states: max |err| {rerr:.3e}")
     check(rerr <= 1e-4, f"open library rewards error {rerr}")
     out["act_open_rew_err"] = rerr
+    g25 = torch.Generator().manual_seed(25)
+    out["act_open_ms"] = time_cuda(lambda: fr.rollout(
+        odyn, ocfg, z0, 10, True, g25, oprep, acts), iters=50, warmup=2)
+    noise = torch.randn((576, 10) + tuple(z0.shape[1:]), device=dev)
+    out["act_open_plain_ms"] = time_cuda(lambda: fr.rollout_states_reference(
+        odyn, ocfg, z0, 10, noise, acts), iters=5)
+    out["act_open_bound"] = rollout_bound(
+        2.0 * macs_per_frame(ocfg, open_head=True) * 576 * 10,
+        4.0 * (z0.numel() * 11 + 2 * 576 * 10) + oprep.numel(), "float32")
     zero()
 
     # ---- (21) grav-eval: mode=eval of r4rp_grav_s32 through the entry
@@ -1892,8 +2122,8 @@ def fourth_slice(card: str, dev) -> dict:
             gdyn, gcfg, z0, 92, noise), iters=2)
         macs = macs_per_frame(gcfg, open_head=True)
         flops = 2.0 * macs * 16384 * 92
-        nbytes = 4.0 * (z0.numel() * 93 + gprep.numel())
-        b_ms, by = bound(flops, nbytes)
+        nbytes = 4.0 * z0.numel() * 93 + gprep.numel()
+        b_ms, by = rollout_bound(flops, nbytes, "float32")
         timing["open"] = (k_ms, p_ms, b_ms, by)
         phase("timing4", f"open-head sampled rollout B=16384 H=92: "
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({by},"
@@ -1906,6 +2136,398 @@ def fourth_slice(card: str, dev) -> dict:
           f"{out['launches_grav_eval']}, grav-train "
           f"{out['launches_grav_train']} (open head "
           f"{out['open_launches_train']})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fifth slice: the rollout kernel on the tensor cores in both of the TPU
+# kernel's precisions (and a small tile for small batches), the scan's
+# bfloat16 forward, the planner's bfloat16 leaves
+# ---------------------------------------------------------------------------
+
+BF16_STATES = dict(max_ratio=2.0, share=1e-2)   # as tests/bf16_parity.py
+BF16_REWARDS = dict(max_ratio=2.0, share=3e-2)
+
+
+def hold_bf16(name, got, ref_bf16, ref_f32, steps=4,
+              max_ratio=BF16_STATES["max_ratio"], share=BF16_STATES["share"]):
+    """A bf16 library's output against the plain version at bf16 over steps
+    1..`steps` (dim 1): the median of |got - plain bf16| over the step, and
+    its median over the (sample, object) entries of each last-dim column,
+    at most 0.1x that of |plain bf16 - plain f32| (the same rounding
+    points: a missing or wrong one moves every sample).  Two f32 sums of
+    the same bf16 products in another order now and then round an
+    activation to the neighbouring bf16 value, which moves that one row
+    (tests/test_torch_rollout_bf16.py); such rows are held apart: the
+    largest |got - plain bf16| at most `max_ratio` times the largest |plain
+    bf16 - plain f32|, and at most `share` of the step's entries (or one
+    (sample, object) row's, where that is more) above 0.1x that largest
+    distance, so a fault in a share of the rows (one sample of a block,
+    one warp's rows) fails.  Returns (the largest |got - plain bf16|, the
+    largest median ratio, the ratio of the maxima)."""
+    import torch
+    emax = worst_med = worst_max = 0.0
+    for t in range(steps):
+        d = (got[:, t] - ref_bf16[:, t]).abs().double()
+        r = (ref_bf16[:, t] - ref_f32[:, t]).abs().double()
+        cols = d.shape[-1] if d.dim() > 1 else 1
+        cd = d.reshape(-1, cols).median(0).values
+        cr = r.reshape(-1, cols).median(0).values
+        dm, rm = d.median().item(), r.median().item()
+        ratio_cols = torch.where(cr > 0, cd / cr.clamp_min(1e-30),
+                                 torch.where(cd > 0, torch.inf, 0.0))
+        ratio = d.max().item() / max(r.max().item(), 1e-30)
+        moved = (d > 0.1 * r.max()).double().mean().item()
+        worst_med = max(worst_med, dm / max(rm, 1e-30),
+                        ratio_cols.max().item())
+        worst_max = max(worst_max, ratio)
+        emax = max(emax, d.max().item())
+        phase(name, f"step {t + 1}: |kernel - plain bf16| median {dm:.2e} "
+              f"max {d.max().item():.2e}; |plain bf16 - plain f32| median "
+              f"{rm:.2e} max {r.max().item():.2e}; largest column median "
+              f"ratio {ratio_cols.max().item():.3f}; ratio of the maxima "
+              f"{ratio:.3f}; share of entries above 0.1x the bf16 - f32 "
+              f"maximum {moved:.2e}")
+        check(rm > 0, f"{name}: the bf16 plain version differs from f32")
+        check(dm <= 0.1 * rm and ratio_cols.max().item() <= 0.1,
+              f"{name} step {t + 1}: kernel vs plain bf16 medians")
+        check(ratio <= max_ratio, f"{name} step {t + 1}: kernel vs plain "
+              f"bf16 maximum {ratio:.3f}x the bf16 - f32 maximum")
+        check(moved <= max(share, cols / d.numel()), f"{name} step {t + 1}: "
+              f"share of moved entries {moved:.2e}")
+    return emax, worst_med, worst_max
+
+
+def hold_f32_large(name, dyn, cfg, z0, H, acts, prep):
+    """The float32 library at 16 samples a block: step 1 within 1e-4 of the
+    plain version in float32 and float64 (phase (12)'s limit), over all H
+    steps its distance from float64 at most twice the float32 plain
+    version's (phase (2)'s long-horizon criterion), rewards within 1e-4
+    at step 1.  Returns the largest step-1 error."""
+    import torch
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.train import checkpoint as ckpt_lib
+    d64 = ckpt_lib.params_from_numpy(dyn, z0.device, torch.float64)
+    got, rew = fr.rollout(dyn, cfg, z0, H, False, None, prep, acts)
+    ref, rref = fr.rollout_states_reference(dyn, cfg, z0, H, None, acts)
+    q, qr = fr.rollout_states_reference(d64, cfg, z0.double(), H, None, acts)
+    torch.cuda.synchronize()
+    dist = lambda a, b, k: (a[:, :k].double()  # noqa: E731
+                            - b[:, :k].double()).abs().max().item()
+    s32, s64 = dist(got, ref, 1), dist(got, q, 1)
+    k_all, p_all = dist(got, q, H), dist(ref, q, H)
+    r1 = max(dist(rew[:, :, None], rref[:, :, None], 1),
+             dist(rew[:, :, None], qr[:, :, None], 1))
+    phase(name, f"float32 library B={z0.shape[0]} H={H} (tile "
+          f"{fr.tile_for(z0.shape[0])}): step 1 vs float32 {s32:.3e}, vs "
+          f"float64 {s64:.3e}; over {H} steps from float64: kernel "
+          f"{k_all:.3e}, float32 plain {p_all:.3e}; rewards step 1 {r1:.2e}")
+    check(s32 <= 1e-4 and s64 <= 1e-4, f"{name} step-1 error {s32} / {s64}")
+    check(k_all <= 2 * p_all, f"{name} distance from float64 {k_all} > 2x "
+          f"the float32 plain version's {p_all}")
+    check(r1 <= 1e-4, f"{name} step-1 rewards error {r1}")
+    return s32
+
+
+def implied_open_std(name, dyn, cfg, z0, dtype, prep, lim):
+    """The open-loop std head of the `dtype` library at B = len(z0), H=1:
+    the same seed through the library without the head draws the same
+    normals, so the std the head's library injected is implied; against
+    rollout_sigma_temp * std_open of the plain head at that precision,
+    where |eps| > 0.5: the median relative error within `lim` (and, for
+    float32, phase (20)'s maximum within 1e-2).  Returns the max |err|."""
+    import torch
+    from stove_tpu_torch.models import dynamics as dyn_lib
+    from stove_tpu_torch.ops import fused_rollout as fr
+    temp = cfg.rollout_sigma_temp
+    d = dyn_lib.apply(dyn, cfg, z0, bf16=dtype == "bfloat16")
+    mean_k, _ = fr.launch_kernel(prep, cfg, z0, 1, False, 0, None, False,
+                                 dtype)
+    s_f, _ = fr.launch_kernel(prep, cfg, z0, 1, True, 29, None, False, dtype)
+    s_o, _ = fr.launch_kernel(prep, cfg, z0, 1, True, 29, None, True, dtype)
+    eps_k = (s_f - mean_k)[:, 0] / (temp * d.std)
+    mask = eps_k.abs() > 0.5
+    mask[..., :2] = False
+    want = (temp * d.std_open)[mask]
+    err = ((s_o - mean_k)[:, 0] / eps_k)[mask] - want
+    rel = err.abs() / want
+    phase(name, f"{dtype} open-head library B={z0.shape[0]} (tile "
+          f"{fr.tile_for(z0.shape[0])}): implied std vs temp * std_open over "
+          f"{int(mask.sum())} entries: relative median {rel.median().item():.2e}"
+          f" max {rel.max().item():.2e}")
+    check(rel.median().item() <= lim, f"{name} open-head std ({dtype})")
+    if dtype == "float32":
+        check(rel.max().item() <= 1e-2, f"{name} open-head std max")
+    return err.abs().max().item()
+
+
+def fifth_slice(card: str, dev, model, z_post) -> dict:
+    import torch
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch.envs import data as data_lib
+    from stove_tpu_torch.models.bundle import StoveModel
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.ops import fused_scan as fscan
+    from stove_tpu_torch.planning import runner
+    from stove_tpu_torch.planning import simulators as sims
+    from stove_tpu_torch.train import checkpoint as ckpt_lib
+
+    out = {}
+    cfg, dyn = model.cfg, model.params["dynamics"]
+    acfg = ckpt_lib.load_config(AVOID)
+    amodel = StoveModel.from_run(AVOID, device=dev)
+    adyn = amodel.params["dynamics"]
+    gcfg = ckpt_lib.load_config(GRAV)
+    gmodel = StoveModel.from_run(GRAV, device=dev)
+    gdyn = gmodel.params["dynamics"]
+    gen = torch.Generator().manual_seed(30)
+    agen = torch.Generator(device=dev).manual_seed(31)
+
+    def posterior(mdl, c, n):
+        ep = data_lib.generate(c.with_overrides(seq_len=c.window), n, gen, dev)
+        with torch.no_grad():
+            inf = mdl.infer(data_lib.normalize_frames(ep.frames),
+                            ep.actions if c.action_conditioned else None,
+                            generator=gen)
+        return inf.z_mean[:, -1].contiguous()
+
+    a_post = posterior(amodel, acfg, 1024)
+    g_post = posterior(gmodel, gcfg, 1024)
+    rows = lambda zp, B: zp[torch.arange(B, device=dev)  # noqa: E731
+                            % zp.shape[0]].contiguous()
+
+    # ---- (24) bf16: every bf16 rollout library against the plain version
+    # at bf16, at 16 samples a block (B=16384) and at the small tile (the
+    # planner's B=576), billiards from the posterior states of phase (2),
+    # avoidance with random actions and its rewards; the float32 libraries
+    # at B=16384 (16 samples a block; phases (2) and (12) hold the small
+    # tile); the open-loop head of both precisions; the bf16 scan library
+    # against the plain loop at bf16 on the windows of each model
+    with torch.no_grad():
+        for label, mdl, c, zp in (("billiards", model, cfg, z_post),
+                                  ("avoidance", amodel, acfg, a_post)):
+            d_ = mdl.params["dynamics"]
+            pb = mdl.prepared_for("bfloat16")
+            for B in (16384, 576):
+                z0 = rows(zp, B)
+                acts = (torch.randint(0, c.num_actions, (B, 4), device=dev,
+                                      generator=agen)
+                        if c.action_conditioned else None)
+                got, rew = fr.rollout(d_, c, z0, 4, False, None, pb, acts,
+                                      "bfloat16")
+                rb, rrb = fr.rollout_states_reference(d_, c, z0, 4, None,
+                                                      acts, "bfloat16")
+                rf, rrf = fr.rollout_states_reference(d_, c, z0, 4, None,
+                                                      acts)
+                torch.cuda.synchronize()
+                name = f"bf16 {label} B={B}"
+                e, med, mx = hold_bf16(name, got, rb, rf)
+                key = fr.job(fr.kernel_config(c, d_), False, "bfloat16",
+                             fr.tile_for(B))
+                fields = {"err": e, "median_ratio": med, "max_ratio": mx}
+                if c.reward_head:
+                    e_r, med_r, mx_r = hold_bf16(name + " rewards",
+                                                 rew[..., None], rrb[..., None],
+                                                 rrf[..., None], **BF16_REWARDS)
+                    fields.update(err_rewards=e_r, median_ratio_rewards=med_r,
+                                  max_ratio_rewards=mx_r)
+                note(key, **fields)
+                out[f"bf16_{label}_{B}"] = fields
+            z0 = rows(zp, 16384)
+            acts = (torch.randint(0, c.num_actions, (16384, 8), device=dev,
+                                  generator=agen)
+                    if c.action_conditioned else None)
+            e = hold_f32_large("f32-large", d_, c, z0, 8, acts, mdl.prepared)
+            note(fr.job(fr.kernel_config(c, d_), False, "float32", 16), err=e)
+        gz = rows(g_post, 16384)
+        note(fr.job(gcfg, True, "bfloat16", 16), err=implied_open_std(
+            "bf16", gdyn, gcfg, gz, "bfloat16",
+            gmodel.prepared_for("bfloat16"), 1e-2))
+        note(fr.job(gcfg, True, "float32", 4), err=implied_open_std(
+            "bf16", gdyn, gcfg, rows(g_post, 576), "float32", gmodel.prepared,
+            1e-2))
+        for label, mdl, c in (("billiards", model, cfg),
+                              ("avoidance", amodel, acfg),
+                              ("gravity", gmodel, gcfg)):
+            args, acts, eps = scan_inputs(mdl, c, 256, gen, dev)
+            d_ = mdl.params["dynamics"]
+            k = fscan.launch_kernel(fr.pack_params(d_, c), c, *args, eps, acts,
+                                    "bfloat16")
+            rb = fscan.scan_reference(d_, c, *args, acts, eps,
+                                      dtype="bfloat16")
+            rf = fscan.scan_reference(d_, c, *args, acts, eps)
+            torch.cuda.synchronize()
+            fields = {}
+            for i, what in ((0, "z"), (1, "z_mean")):
+                e, med, mx = hold_bf16(f"bf16 scan {label} {what}", k[i],
+                                       rb[i], rf[i], steps=min(4, acts.shape[1]))
+                fields[what] = (e, med, mx)
+            if c.reward_head:
+                fields["rewards"] = hold_bf16(
+                    f"bf16 scan {label} rewards", k[3][..., None],
+                    rb[3][..., None], rf[3][..., None], **BF16_REWARDS)
+            dk, rk = (k[2] - rb[2]).abs(), (rb[2] - rf[2]).abs()
+            phase("bf16", f"scan {label}: kl |kernel - plain bf16| median "
+                  f"{dk.median().item():.2e} max {dk.max().item():.2e}; "
+                  f"|plain bf16 - f32| median {rk.median().item():.2e} max "
+                  f"{rk.max().item():.2e}")
+            check(dk.median().item() <= 0.1 * rk.median().item(),
+                  f"bf16 scan {label} kl medians")
+            check(dk.max().item() <= BF16_STATES["max_ratio"] * rk.max().item(),
+                  f"bf16 scan {label} kl maximum")
+            note(fscan.job(c, "bfloat16"), err=fields["z"][0],
+                 median_ratio=max(v[1] for v in fields.values()),
+                 max_ratio=max(v[2] for v in fields.values()))
+            out[f"scan_bf16_{label}"] = {w: v[0] for w, v in fields.items()}
+            out[f"scan_inputs_{label}"] = (args, acts, eps)
+
+    # ---- (25) plan-bf16: mode=mcts of r4a_dense_s2 with
+    # mcts_rollout_impl=pallas: leaves valued by the bf16 rollout (the JAX
+    # planner's pallas path), steps in float32; phase (15)'s limits
+    rounds = [0]
+    real_round = sims.LearnedSimulator._round
+
+    def counted(self, *a, **k):
+        rounds[0] += 1
+        return real_round(self, *a, **k)
+
+    pcfg, _, pdev = entry.build_config(
+        [f"restore={AVOID}", "mode=mcts", "mcts_episodes=16",
+         "mcts_episode_len=40", "mcts_rollout_impl=pallas"])
+    sims.LearnedSimulator._round = counted
+    snap = library_counts()
+    t = time.perf_counter()
+    try:
+        res = runner.run_planning(pcfg, device=pdev)
+        torch.cuda.synchronize()
+    finally:
+        sims.LearnedSimulator._round = real_round
+    plan_s = time.perf_counter() - t
+    by_lib = counted_since(snap)
+    sc = {k: torch.tensor(v, dtype=torch.float64)
+          for k, v in res["episode_scores"].items()}
+    gain = sc["model"] - sc["random"]
+    gain_sem = (gain.std(unbiased=False) / len(gain) ** 0.5).item()
+    share = ((sc["model"].mean() - sc["random"].mean())
+             / (sc["oracle"].mean() - sc["random"].mean())).item()
+    plan_B = pcfg.mcts_episodes * pcfg.mcts_frontier * acfg.num_actions
+    leaf_lib = lib_key(fr.job(acfg, False, "bfloat16", fr.tile_for(plan_B)))
+    step_lib = lib_key(fr.job(acfg, False, "float32", fr.tile_for(plan_B)))
+    plan = {"model": res["model_mean_reward"],
+            "oracle": res["oracle_mean_reward"],
+            "random": res["random_mean_reward"],
+            "model_minus_random": gain.mean().item(),
+            "model_minus_random_sem": gain_sem, "share_closed": share,
+            "seconds": plan_s, "rounds": rounds[0], "launches": by_lib}
+    phase("plan-bf16", f"mcts_rollout_impl=pallas, {len(gain)} episodes x "
+          f"{pcfg.mcts_episode_len} steps in {plan_s:.1f} s: mean reward "
+          f"oracle {plan['oracle']:.3f} > model {plan['model']:.3f} > random "
+          f"{plan['random']:.3f}; model - random {gain.mean().item():.3f} +- "
+          f"{gain_sem:.3f} (paired SEM); the model closes {100 * share:.1f}% "
+          f"of the oracle - random gap; {rounds[0]} rounds; launches by "
+          f"library {by_lib}")
+    check(plan["oracle"] > plan["model"] > plan["random"],
+          f"bf16-leaf planning order oracle > model > random: {plan}")
+    check(gain.mean().item() > 2 * gain_sem,
+          f"bf16-leaf model gain {gain.mean().item()} <= 2 SEM {gain_sem}")
+    check(by_lib.get(leaf_lib, 0) == rounds[0] > 0
+          and by_lib.get(step_lib, 0) == rounds[0],
+          "each round: one bf16 leaf launch (small tile), one float32 step")
+    out["plan_bf16"] = plan
+
+    # ---- (26) timing5: every rollout library at the launch shapes of its
+    # paths, float32 and bf16 in turns (f32, bf16, bf16, f32), each beside
+    # its plain version at that precision and its bound (bf16: operations
+    # at 989 TFLOP/s; float32: three TF32 passes at 495 TFLOP/s; or bytes)
+    timing = {}
+    shapes = [("billiards", model, cfg, z_post, False, 16384, 92, True),
+              ("billiards", model, cfg, z_post, False, 16384, 92, False),
+              ("billiards", model, cfg, z_post, False, 100, 8, False),
+              ("billiards", model, cfg, z_post, False, 32, 80, False),
+              ("avoidance", amodel, acfg, a_post, False, 576, 10, False),
+              ("avoidance", amodel, acfg, a_post, False, 576, 1, False),
+              ("avoidance", amodel, acfg, a_post, False, 16384, 92, True),
+              ("avoidance", amodel, acfg, a_post, False, 100, 8, False),
+              ("gravity", gmodel, gcfg, g_post, True, 16384, 92, True),
+              ("gravity", gmodel, gcfg, g_post, True, 32, 80, True)]
+    with torch.no_grad():
+        for label, mdl, c, zp, op, B, H, smp in shapes:
+            d_ = mdl.params["dynamics"]
+            z0 = rows(zp, B)
+            acts = (torch.randint(0, c.num_actions, (B, H), device=dev,
+                                  generator=agen)
+                    if c.action_conditioned else None)
+            g_ = torch.Generator().manual_seed(26)
+            preps = {dt: mdl.prepared_for(dt) for dt in fr.DTYPES}
+            ms = {dt: [] for dt in fr.DTYPES}
+            for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+                ms[dt].append(time_cuda(
+                    lambda: fr.rollout(d_, c, z0, H, smp, g_, preps[dt], acts,
+                                       dt),
+                    iters=50 if B < 1000 else 5, warmup=2))
+            noise = (torch.randn((B, H) + tuple(z0.shape[1:]), device=dev)
+                     if smp else None)
+            macs = macs_per_frame(c, open_head=op and smp)
+            flops = 2.0 * macs * B * H
+            for dt in fr.DTYPES:
+                p_ms = time_cuda(lambda: fr.rollout_states_reference(
+                    d_, c, z0, H, noise, acts, dt),
+                    iters=5 if B < 1000 else 2)
+                k_ms = sum(ms[dt]) / len(ms[dt])
+                nbytes = 4.0 * (z0.numel() * (1 + H)
+                                + (2 * B * H if c.action_conditioned else 0)
+                                ) + preps[dt].numel()
+                b_ms, by = rollout_bound(flops, nbytes, dt)
+                key = fr.job(fr.kernel_config(c, d_), op and smp, dt,
+                             fr.tile_for(B))
+                shape = {"model": label, "B": B, "H": H, "sample": smp}
+                timing[(label, B, H, smp, dt)] = (k_ms, p_ms, b_ms, by)
+                if lib_key(key) not in LIBS or "ms" not in LIBS[lib_key(key)]:
+                    note(key, ms=k_ms, plain_ms=p_ms, bound=(b_ms, by),
+                         shape=shape)
+                phase("timing5", f"{label} {dt} B={B} H={H} "
+                      f"{'sampled' if smp else 'mean'} (tile "
+                      f"{fr.tile_for(B)}{', open head' if op and smp else ''}"
+                      f"): kernel {k_ms:.3f} ms (runs "
+                      + ", ".join(f"{x:.3f}" for x in ms[dt])
+                      + f"), plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}),"
+                      f" kernel at {100 * b_ms / k_ms:.1f}% of it, "
+                      f"{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s on {card}")
+        # the velocity-mode and bf16 scan libraries at their training shapes
+        for label, mdl, c in (("billiards", model, cfg),
+                              ("avoidance", amodel, acfg),
+                              ("gravity", gmodel, gcfg)):
+            args, acts, eps = out.pop(f"scan_inputs_{label}")
+            d_ = mdl.params["dynamics"]
+            packed = fr.pack_params(d_, c)
+            variants = [(c, "bfloat16")]
+            if label == "billiards":
+                variants += [(c.with_overrides(velocity_obs_full_std=False),
+                              "float32"),
+                             (c.with_overrides(velocity_obs="filtered"),
+                              "float32")]
+            for c2, dt in variants:
+                k_ms = time_cuda(lambda: fscan.launch_kernel(
+                    packed, c2, *args, eps, acts, dt), iters=20, warmup=2)
+                p_ms = time_cuda(lambda: fscan.scan_reference(
+                    d_, c2, *args, acts, eps, dtype=dt), iters=5)
+                B_, T2 = acts.shape
+                flops = 2.0 * macs_per_frame(c2) * B_ * T2
+                nbytes = 4.0 * (sum(a.numel() for a in args)
+                                + 3 * eps.numel() + B_ + 2 * B_ * T2
+                                + packed.numel())
+                b_ms, by = bound(flops, nbytes)
+                note(fscan.job(c2, dt), ms=k_ms, plain_ms=p_ms,
+                     bound=(b_ms, by), shape={"model": label, "B": B_,
+                                              "T2": T2})
+                timing[(f"scan {label}", B_, T2, False, dt)] = (k_ms, p_ms,
+                                                                b_ms, by)
+                phase("timing5", f"scan {label} {dt} "
+                      f"{fscan.velocity_mode(c2)=} B={B_} T2={T2}: kernel "
+                      f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} "
+                      f"ms ({by}, f32 CUDA-core peak) on {card}")
+    out["timing"] = {" ".join(str(x) for x in k): v
+                     for k, v in timing.items()}
     return out
 
 

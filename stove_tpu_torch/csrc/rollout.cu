@@ -1,69 +1,81 @@
-// Fused whole-horizon STOVE dynamics rollout for Hopper (sm_90a).
+// Fused whole-horizon STOVE dynamics rollout for Hopper (sm_90a): bf16
+// matmuls on the tensor cores, float32 ones on the CUDA cores.
 //
 // Replaces: stove_tpu/ops/pallas_rollout.py::rollout_states and
 // ::rollout_act (the Pallas kernel body _make_kernel, its graph-net core
 // dyn_tile_core with the action term, Euler integration integrate_mean, the
 // reward head reward_tile_pool, the open-loop std head of the sampled path
 // (_make_kernel's open_head branch), and the in-kernel Box-Muller noise of
-// _normals/_bits_to_normal_pairs).  Same contract: z0 (B, O, 6+cl) f32 and,
-// for an action-conditioned model (STOVE_ACT=1), actions (B, H) int32 in;
-// states (B, H, O, 6+cl) f32 and, with the reward head (STOVE_REW=1), the
-// raw reward probabilities (B, H) f32 out; mean or sampled, all H steps in
-// one launch; state and every activation stay on chip, device memory sees
-// z0 and the actions in and the trajectory and rewards out.
+// _normals/_bits_to_normal_pairs), in both of the TPU kernel's precisions:
+// STOVE_BF16=1 is its default bfloat16 variant (make_mm: every matmul
+// operand rounded to bf16, f32 accumulation; biases, the attention column,
+// the reward head's gap and distance rows and last columns, integration
+// and noise in f32), STOVE_BF16=0 its float32 variant.  Same contract: z0
+// (B, O, 6+cl) f32 and, for an action-conditioned model (STOVE_ACT=1),
+// actions (B, H) int32 in; states (B, H, O, 6+cl) f32 and, with the reward
+// head (STOVE_REW=1), the raw reward probabilities (B, H) f32 out; mean or
+// sampled, all H steps in one launch; state and every activation stay on
+// chip, device memory sees z0 and the actions in and the trajectory and
+// rewards out.
 //
-// Bound on this card.  One frame (one sample, one step, all O objects)
-// costs ~613.6k multiply-adds at O=3, h=128, cl=16 (6 ordered pairs), and
-// the bytes are only z0 + the trajectory (264 B per frame), so the work
-// is compute bound: at B=16384, H=92 it is 1.85 TFLOP against ~0.4 GB of
-// traffic.  The reward head adds 2 heads x O x (2h*h + h*h + h) = 295,680
-// multiply-adds a frame (1.48x the action-free frame).  This kernel
-// computes in f32 on the CUDA cores (67 TFLOP/s peak), which keeps the
-// mean path within 1e-4 of the plain PyTorch version; the bf16
-// tensor-core bound (989 TFLOP/s) is what a later wgmma version could
-// approach.  At the planner's leaf shape (B = 360, H = 10) the launch is
-// latency bound: 23 blocks on 132 SMs.
+// Bounds on this card.  One frame (one sample, one step, all O objects)
+// costs 613,632 multiply-adds at O=3, h=128, cl=16 (6 ordered pairs); the
+// reward head adds 295,680 (1.48x), the open-loop head 106,496.  The bytes
+// are z0 + the trajectory (264 B per frame), so the work is bound by
+// operations: at B=16384, H=92, 1.85 TFLOP is 1.87 ms at the bf16 tensor-
+// core peak (989 TFLOP/s) and 27.6 ms at the f32 CUDA-core peak (67
+// TFLOP/s) the float32 library runs at.  Below those sits the weight
+// stream: each block reads every matrix once a step from L2 (345 KB bf16,
+// 691 KB f32 without the reward head), at B=16384, H=92 and 16 samples a
+// block ~32 GB (bf16) or ~65 GB (f32) from L2 into the SMs.
 //
-// Design.  The TPU kernel kept all weights resident in VMEM; here the f32
-// weights (172,839 parameters, 691 KB, and 136,960 more for the reward
-// head) are far above a block's 227 KB of
-// shared memory, so they stay in global memory (L2 holds them all) and
-// each layer streams through a 32 KB shared staging buffer one chunk of
-// rows at a time, the next chunk in flight in registers while the current
-// one is used.  Each block thus reads every weight once per step; letting
-// the 8 warps read weights through L1 instead was 1.35x slower, and
-// halving the tile (TB, samples per block) is 1.4x slower, since the
-// weight traffic and the fixed costs per frame grow as 1/TB.  A block owns TB samples for the whole
-// horizon (a loop over H inside the block replaces the TPU's sequential
-// fori_loop).  Activations live in shared memory feature-major,
-// X[k * ld + m], with m running over (object, sample) rows -- or over
-// (ordered pair, sample) rows for the relational MLP -- which is the TPU's
-// lane-stacked layout.  Every layer is one block-wide matmul
-// Y = act(X @ W + b): each thread owns a TM x 4 register tile (4 adjacent
-// output features, TM adjacent rows); a warp covers 32 features x 4 row
-// groups, so per k it reads one 128 B wavefront of weights and four row
-// slices of X; sums run in f32 in k order.  The receiver/sender split of
-// the first relational layer is one N=2h matmul; pair activations
-// relu(recv_o + send_j + b) are then formed for the O(O-1) ordered pairs
-// (the diagonal skipped, as the mask in dynamics.py does) and the
-// attention-gated pair sum is reduced per receiver.  The first output
-// layer contracts [s | r] with K=2h, i.e. its self and relational halves
-// stacked.  The action enters as its row of embed layer 0, added before
-// that layer's ReLU; the reward head runs after the state update on the
-// predicted mean, still in shared memory, in buffers the next step
-// overwrites.  The open-loop std head (STOVE_OPEN, sampled rollouts of a
-// model trained with open_loop_sigma) is a second two-layer MLP on [s ; r]
-// whose stds, floored at the wrapper's lo = min_open_std, replace the
-// output MLP's for the injected noise; its layers run in P2, free between
-// the dynamics and the reward head, so it needs no shared memory of its
-// own.  Noise: Philox4x32-10 keyed by a seed the wrapper draws from the
-// caller's torch.Generator, counter (chunk, step, sample, object), both
-// Box-Muller branches.
-//
-// The dynamics core (shapes, parameter layout, block-wide matmul, one
-// dynamics step, Euler integration, the reward head) lives in
-// dyn_core.cuh, shared with the posterior scan kernel (scan.cu).
+// Design, point by point against what held the earlier CUDA-core kernel
+// back:
+// 1. Matmuls: in the bf16 library on the tensor cores, warp-level
+//    mma.sync m16n8k16 (dyn_core.cuh, mma_gemm).  mma.sync, not wgmma: a
+//    block's rows are 48 (objects) or 96 (pairs), multiples of 16 but not
+//    of wgmma's 64.  Rows are the m dimension, so one weight fragment
+//    serves all of a block's rows.  The float32 library keeps FMA on the
+//    CUDA cores, each thread summing over k in order a register tile of
+//    6x4 (object rows) or 12x4 (pair rows, and the N = 2h layers) outputs,
+//    a warp reading each weight row as 128 contiguous bytes: the
+//    three-pass TF32 split (x = hi + lo, hi*hi + hi*lo + lo*hi on
+//    m16n8k8) represents each operand only to 2^-22 of itself, and on an
+//    H100 it drifted about 1e-4 from the float32 plain version over 8
+//    steps at the avoidance planner's B=360, H=10, where chip_smoke.py
+//    holds float32 to 1e-4 -- a build-time choice, not a fallback at run
+//    time (PERF.md gives its error and time).
+// 2. Weights packed once (fused_rollout.prepare_params), bf16 in the
+//    order the mma fragments load, f32 row-major for the FMA core, and
+//    streamed through a two-slot ring in shared memory (16 KB slots; 32 KB
+//    for the float32 library at 16 samples a block) filled by cp.async:
+//    the next chunk is in flight while the current one is used, across
+//    layers, heads and steps too, one barrier a chunk, no registers held
+//    for the prefetch.
+// 3. In the bf16 library the activations only matmuls read (embed and
+//    self hidden rows, e, [s | r], the pair rows h1, the output MLP's hidden
+//    rows, the heads' hidden rows) are stored bf16, rounded where make_mm
+//    rounds them; rows that elementwise code reads stay f32.  The f32
+//    feature and h2 rows of the 96 pair rows fill the room, so the tile
+//    stays at 16 samples.
+// 4. The attention logit and the reward head's last columns are warp-wide
+//    f32 dot products (one warp a row, shuffle sum), not serial loops.
+// 5. Small batches: the wrapper builds a second library with TB=4 samples a
+//    block (12 object rows and 24 pair rows, padded to the mma's 16) and
+//    launches it when ceil(B / 16) < 132 blocks, so the planner's B=576
+//    runs 144 blocks; it fits two blocks an SM.
+// A block owns TB samples for the whole horizon (a loop over H inside the
+// block replaces the TPU's sequential fori_loop).  The action enters as its
+// row of embed layer 0, added before that layer's ReLU; the reward head
+// runs after the state update on the predicted mean; the open-loop std head
+// (STOVE_OPEN, sampled rollouts of a model trained with open_loop_sigma) is
+// a second two-layer MLP on [s ; r] whose stds, floored at the wrapper's
+// lo = min_open_std, replace the output MLP's for the injected noise.
+// Noise: Philox4x32-10 keyed by a seed the wrapper draws from the caller's
+// torch.Generator, counter (chunk, step, sample, object), both Box-Muller
+// branches.
 
+#define STOVE_MMA 1
 #include "dyn_core.cuh"
 
 namespace {
@@ -96,56 +108,61 @@ __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float& z0, fl
     z1 = r * s;
 }
 
-__global__ void __launch_bounds__(NT, 1)
-rollout_kernel(const float* __restrict__ z0, const float* __restrict__ P,
+// The matrix after the output MLP and the open-loop head: the reward
+// head's first, or the next step's.
+__device__ __forceinline__ Next after_heads(const unsigned char* P) {
+    return REW ? next_matrix<2 * HID, 2 * HID>(P + O_WH0) : next_matrix<HID, DP>(P + O_WE0);
+}
+
+__global__ void __launch_bounds__(NT, TB <= 4 ? 2 : 1)
+rollout_kernel(const float* __restrict__ z0, const unsigned char* __restrict__ P,
                const int* __restrict__ actions, float* __restrict__ out,
                float* __restrict__ rewards, int B, int H, int sample,
                unsigned long long seed, float size_std, float std_lo,
                float std_hi, float temp, int latent_residual) {
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    float* zs = smem;                 // (D, LDO) state
-    float* AE = zs + ZS_SIZE;         // scratch: two (h, LDO) or one (h, LDP)
-    float* AEb = AE + HID * LDO;
-    float* SR = AE + AE_SIZE;         // (2h, LDO): rows [0,h) s, [h,2h) r
-    float* P2 = SR + SR_SIZE;         // (2h, LDO) recv|send, then (h, LDP)
-    float* LG = P2 + P2_SIZE;         // (MP) pair attention weights
-    float* WS = LG + LG_SIZE;         // weight staging chunk
-    float* RW = WS + WS_FLOATS;       // (4, LDO) reward head rows
-    int* ACTS = reinterpret_cast<int*>(RW + RW_SIZE);   // (TB) the step's actions
-
+    const Smem s = carve(reinterpret_cast<unsigned char*>(smem4));
     const int tid = threadIdx.x;
     const int b0 = blockIdx.x * TB;
     constexpr int SD = O * D;
     const uint32_t k0 = (uint32_t)(seed & 0xffffffffull);
     const uint32_t k1 = (uint32_t)(seed >> 32);
 
+    // padding rows and columns stay zero for the whole horizon
+    for (int i = tid; i < (int)(SMEM_BYTES / 16); i += NT) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
     for (int i = tid; i < TB * SD; i += NT) {
         const int b = i / SD, r = i % SD, o = r / D, d = r % D;
         const int gb = b0 + b;
-        zs[d * LDO + o * TB + b] = gb < B ? z0[(size_t)gb * SD + r] : 0.f;
+        s.zs[(o * TB + b) * LDZ + d] = gb < B ? z0[(size_t)gb * SD + r] : 0.f;
     }
-    __syncthreads();
+    int q = 0;                        // weight chunks used (ring slot parity)
+    // the weight stream: each gemm puts the next matrix's first chunk in
+    // flight, across heads and steps
+    stream_start(s.ring, q, next_matrix<HID, DP>(P + O_WE0));
 
     for (int t = 0; t < H; ++t) {
         if constexpr (ACT) {
             if (tid < TB) {
                 const int gb = b0 + tid;
-                ACTS[tid] = gb < B ? actions[(size_t)gb * H + t] : 0;
+                s.acts[tid] = gb < B ? actions[(size_t)gb * H + t] : 0;
             }
         }
-        dyn_forward(zs, P, AE, AEb, SR, P2, LG, WS, ACTS);
-        integrate_mean(zs, AE, AEb, latent_residual);   // mean into AEb
+        // its first barrier orders zs and acts
+        dyn_step(s, P, q, OPEN && sample ? next_matrix<HID, 2 * HID>(P + O_WOP0)
+                                         : after_heads(P));
+        integrate_mean(s, latent_residual);
         __syncthreads();
         if (sample) {
-            // z = mean + temp * std * eps; std = size_std on the size rows,
-            // lo + (hi - lo) * sigmoid(raw) on pos/vel/latent rows, raw from
-            // the output MLP or, with STOVE_OPEN, from the open-loop head
-            // (its rows in the second half of P2, the first half scratch)
-            if constexpr (OPEN) open_head(SR, P, P2, P2 + HID * LDO, WS);
+            // z = mean + temp * std * eps; std = size_std on the size columns,
+            // lo + (hi - lo) * sigmoid(raw) on pos/vel/latent columns, raw
+            // from the output MLP or, with STOVE_OPEN, from the open-loop head
+            const float* RAW = nullptr;
+            if constexpr (OPEN) RAW = open_head(s, P, q, after_heads(P));
+            const float* OUT = raw_out(s);
             constexpr int NCH = (D + 3) / 4;
-            for (int i = tid; i < NCH * M; i += NT) {
-                const int c = i / M, m = i % M;
+            for (int i = tid; i < NCH * MR; i += NT) {
+                const int c = i / MR, m = i % MR;
                 const int o = m / TB, b = m % TB;
                 const uint4 bits = philox4x32_10(
                     make_uint4((uint32_t)c, (uint32_t)t, (uint32_t)(b0 + b), (uint32_t)o), k0, k1);
@@ -153,67 +170,75 @@ rollout_kernel(const float* __restrict__ z0, const float* __restrict__ P,
                 box_muller(bits.x, bits.y, nz[0], nz[1]);
                 box_muller(bits.z, bits.w, nz[2], nz[3]);
 #pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const int d = 4 * c + q;
+                for (int u = 0; u < 4; ++u) {
+                    const int d = 4 * c + u;
                     if (d < D) {
                         const float sd = d < 2 ? size_std
                             : std_lo + (std_hi - std_lo) * sigmoidf(
-                                  OPEN ? P2[(HID + d - 2) * LDO + m]
-                                       : AE[(CL + d) * LDO + m]);
-                        zs[d * LDO + m] = AEb[d * LDO + m] + (temp * sd) * nz[q];
+                                  OPEN ? RAW[m * LDOP + d - 2] : OUT[m * LDOUT + CL + d]);
+                        s.zs[m * LDZ + d] = s.zn[m * LDZ + d] + (temp * sd) * nz[u];
                     }
                 }
             }
         } else {
-            for (int i = tid; i < D * M; i += NT) {
-                const int d = i / M, m = i % M;
-                zs[d * LDO + m] = AEb[d * LDO + m];
+            for (int i = tid; i < MR * D; i += NT) {
+                const int m = i / D, d = i % D;
+                s.zs[m * LDZ + d] = s.zn[m * LDZ + d];
             }
         }
         __syncthreads();
         for (int i = tid; i < TB * SD; i += NT) {
             const int b = i / SD, r = i % SD, o = r / D, d = r % D;
             const int gb = b0 + b;
-            if (gb < B) out[((size_t)gb * H + t) * SD + r] = zs[d * LDO + o * TB + b];
+            if (gb < B) out[((size_t)gb * H + t) * SD + r] = s.zs[(o * TB + b) * LDZ + d];
         }
         if constexpr (REW) {
-            // on the predicted mean (still in AEb) and this step's [s ; r]
-            reward_head(AEb, SR, P, P2, AE, RW, WS);
+            // on the predicted mean (s.zn) and this step's [s | r]
+            reward_head(s, P, q, next_matrix<HID, DP>(P + O_WE0));
             if (tid < TB && b0 + tid < B) {
-                rewards[(size_t)(b0 + tid) * H + t] = reward_pool(RW, tid);
+                rewards[(size_t)(b0 + tid) * H + t] = reward_pool(s.rw, tid);
             }
         }
     }
+    cp_async_wait_all();              // the chunk the last step put in flight
 }
 
 }  // namespace
 
 extern "C" {
 
-int stove_rollout_param_count() { return N_PARAMS; }
+int stove_rollout_param_bytes() { return (int)N_BYTES; }
 
 int stove_rollout_smem_bytes() { return (int)SMEM_BYTES; }
 
 int stove_rollout_tile() { return TB; }
 
+int stove_rollout_bf16() { return BF16 ? 1 : 0; }
+
 // Launches the rollout on `stream`; returns the CUDA error code (0 = ok).
-// Pointers are device pointers; the caller checks shapes and allocates out
-// and rewards.  actions (B, H) int32 is read only with STOVE_ACT, rewards
-// (B, H) written only with STOVE_REW; each must be non-null there.
-cudaError_t stove_rollout_launch(const float* z0, const float* params,
+// Pointers are device pointers; params is prepare_params' buffer for this
+// library's precision (16-byte aligned); the caller checks shapes and
+// allocates out and rewards.  actions (B, H) int32 is read only with
+// STOVE_ACT, rewards (B, H) written only with STOVE_REW; each must be
+// non-null there.
+cudaError_t stove_rollout_launch(const float* z0, const void* params,
                                  const int* actions, float* out, float* rewards,
                                  int B, int H, int sample, unsigned long long seed,
                                  float size_std, float std_lo, float std_hi,
                                  float temp, int latent_residual, void* stream) {
     if (B <= 0 || H <= 0) return cudaErrorInvalidValue;
     if ((ACT && actions == nullptr) || (REW && rewards == nullptr)) return cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(params) % 16) return cudaErrorMisalignedAddress;
     cudaError_t err = cudaFuncSetAttribute(
         rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(rollout_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (err != cudaSuccess) return err;
     const int grid = (B + TB - 1) / TB;
     rollout_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-        z0, params, actions, out, rewards, B, H, sample, seed, size_std, std_lo,
-        std_hi, temp, latent_residual);
+        z0, static_cast<const unsigned char*>(params), actions, out, rewards, B, H,
+        sample, seed, size_std, std_lo, std_hi, temp, latent_residual);
     return cudaGetLastError();
 }
 

@@ -6,8 +6,10 @@ are `key=value`: `mode=` (`train`, the default, `eval` or `mcts`),
 config.json and latest ckpt_*.npz), `preset=`, `device=` (`cuda`, the
 default, or `cpu`), and any Config field as an override
 (`scan_impl=pallas`, `likelihood_impl=pallas`, `spn_impl=pallas` select
-the port's training kernels; every rollout on the card runs the rollout
-kernel).
+the port's training kernels, the scan's forward in bfloat16 as the JAX
+package's; every rollout on the card runs the rollout kernel, in float32
+but for the planner's leaves under `mcts_rollout_impl=pallas`, which run
+its bfloat16 library).
 
 mode=train trains from scratch or, with restore=, resumes the run (params,
 Adam state, epoch) for the remaining epochs; it writes config.json,

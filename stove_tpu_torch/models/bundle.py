@@ -57,13 +57,29 @@ class StoveModel:
 
     def set_params(self, params: Dict) -> None:
         """Use `params` (moved to the model's device as needed) and, on the
-        card, pack the rollout kernel's weights from them."""
+        card, pack the rollout kernel's float32 weights from them (the
+        bfloat16 ones at their first use, `prepared_for`)."""
         self.params = ckpt_lib.params_from_numpy(params, self.device)
         self.prepared = None
+        self._prepared_bf16 = None
         if self.device.type == "cuda":
-            with torch.no_grad():
-                self.prepared = fused_rollout.prepare_params(
-                    self.params["dynamics"], self.cfg)
+            self.prepared = self.prepared_for("float32")
+
+    def prepared_for(self, dtype: str) -> Optional[torch.Tensor]:
+        """The rollout kernel's packed weights for `dtype` on the card,
+        packed once per set of params; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        if dtype == "float32" and self.prepared is not None:
+            return self.prepared
+        if dtype == "bfloat16" and self._prepared_bf16 is not None:
+            return self._prepared_bf16
+        with torch.no_grad():
+            buf = fused_rollout.prepare_params(self.params["dynamics"],
+                                               self.cfg, dtype)
+        if dtype == "bfloat16":
+            self._prepared_bf16 = buf
+        return buf
 
     def init_params(self, generator: Optional[torch.Generator] = None
                     ) -> Dict:
@@ -121,6 +137,9 @@ class StoveModel:
 
     def rollout(self, z0: torch.Tensor, actions: Optional[torch.Tensor],
                 horizon: int, generator: Optional[torch.Generator] = None,
-                sample: bool = False):
+                sample: bool = False, dtype: str = "float32"):
+        """`stove.rollout` with this model's weights; `dtype` the matmuls'
+        precision ("float32" or "bfloat16")."""
         return stove_lib.rollout(self.params, self.cfg, z0, actions, horizon,
-                                 generator, sample, self.prepared)
+                                 generator, sample, self.prepared_for(dtype),
+                                 dtype)

@@ -71,18 +71,38 @@ def init_params(cfg: Config, generator: Optional[torch.Generator] = None,
     return params
 
 
-def mlp(layers, x: torch.Tensor) -> torch.Tensor:
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (nearest even) and back to its dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, bf16: bool = False
+           ) -> torch.Tensor:
+    """x @ w; with `bf16` both operands rounded to bfloat16 first and the
+    products summed in x's dtype (the TPU kernels' bf16 matmuls,
+    pallas_rollout.py::make_mm)."""
+    return bf16_round(x) @ bf16_round(w) if bf16 else x @ w
+
+
+def mlp(layers, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """Dense stack x @ w + b with ReLU between layers, none after the last."""
     for i, lyr in enumerate(layers):
-        x = x @ lyr["w"] + lyr["b"]
+        x = matmul(x, lyr["w"], bf16) + lyr["b"]
         if i < len(layers) - 1:
             x = torch.relu(x)
     return x
 
 
 def apply(params: Dict, cfg: Config, z: torch.Tensor,
-          action: Optional[torch.Tensor] = None) -> DynOut:
-    """One transition step.  z: (B, O, 6+cl); action: (B,) int64 or None."""
+          action: Optional[torch.Tensor] = None, bf16: bool = False
+          ) -> DynOut:
+    """One transition step.  z: (B, O, 6+cl); action: (B,) int64 or None.
+
+    `bf16` is the TPU kernels' bfloat16 variant: both operands of every
+    product that `pallas_rollout.make_mm` rounds go to bfloat16 first
+    (every layer but the relational attention column and the reward
+    heads' geometry rows and last layers, which the kernels keep in
+    float32), sums stay in z's dtype."""
     B, O, _ = z.shape
     inp = z
     if cfg.action_conditioned:
@@ -91,25 +111,35 @@ def apply(params: Dict, cfg: Config, z: torch.Tensor,
         onehot = F.one_hot(action.long(), cfg.num_actions).to(z.dtype)
         inp = torch.cat([z, onehot[:, None, :].expand(B, O, -1)], -1)
 
-    e = mlp(params["embed"], inp)                             # (B, O, h)
-    s = mlp(params["self"], e)                                # (B, O, h)
+    dense = (lambda layers, x: mlp(layers, x, True)) if bf16 else mlp
+    e = dense(params["embed"], inp)                           # (B, O, h)
+    s = dense(params["self"], e)                              # (B, O, h)
 
     # W·[e_o; e_j] = W_recv·e_o + W_send·e_j: no (B, O, O, 2h) concat
     w1, rest = params["rel"][0], params["rel"][1:]
     h_e = e.shape[-1]
-    recv = e @ w1["w"][:h_e]                                  # (B, O, h)
-    send = e @ w1["w"][h_e:]
+    recv = matmul(e, w1["w"][:h_e], bf16)                     # (B, O, h)
+    send = matmul(e, w1["w"][h_e:], bf16)
     pair_h = torch.relu(recv[:, :, None, :] + send[:, None, :, :]
                         + w1["b"])                            # (B, O, O, h)
-    rel_att = mlp(rest, pair_h)                               # (B, O, O, h+1)
-    rel = rel_att[..., :-1]
-    att = torch.sigmoid(rel_att[..., -1:])
+    if bf16:
+        # features through rounded operands, the attention column in full
+        x = pair_h
+        for lyr in rest[:-1]:
+            x = torch.relu(matmul(x, lyr["w"], True) + lyr["b"])
+        last = rest[-1]
+        rel = matmul(x, last["w"][:, :-1], bf16) + last["b"][:-1]
+        att = torch.sigmoid(x @ last["w"][:, -1:] + last["b"][-1:])
+    else:
+        rel_att = mlp(rest, pair_h)                           # (B, O, O, h+1)
+        rel = rel_att[..., :-1]
+        att = torch.sigmoid(rel_att[..., -1:])
     mask = (1.0 - torch.eye(O, dtype=z.dtype, device=z.device)
             )[None, :, :, None]
     r = torch.sum(rel * att * mask, dim=2)                    # (B, O, h)
 
     sr = torch.cat([s, r], -1)
-    out = mlp(params["out"], sr)                              # (B, O, d_out)
+    out = dense(params["out"], sr)                            # (B, O, d_out)
     cl = cfg.cl
     dv = out[..., 0:2]
     dl = out[..., 2:2 + cl]
@@ -125,7 +155,7 @@ def apply(params: Dict, cfg: Config, z: torch.Tensor,
     size_std = torch.full_like(z[..., SIZE], cfg.size_std)
     std = torch.cat([size_std, std_pvl], dim=-1)
     if cfg.open_loop_sigma and "open" in params:
-        raw_open = mlp(params["open"], sr.detach())
+        raw_open = dense(params["open"], sr.detach())
         open_pvl = gaussians.bounded_std(raw_open, cfg.min_open_std,
                                          cfg.max_dyn_std)
         std_open = torch.cat([size_std, open_pvl], dim=-1)
@@ -144,9 +174,25 @@ def apply(params: Dict, cfg: Config, z: torch.Tensor,
         big = 10.0 * torch.eye(O, dtype=z.dtype, device=z.device)[None]
         min_gap = torch.amin(gap + big, dim=-1)
         min_dist = torch.amin(pdist + big, dim=-1)
-        feat = torch.cat([s, r, min_gap[..., None], min_dist[..., None]], -1)
-        score = mlp(params["reward"], feat)[..., 0]           # (B, O)
-        att_r = torch.softmax(mlp(params["reward_att"], feat)[..., 0], -1)
+        geo = torch.stack([min_gap, min_dist], -1)            # (B, O, 2)
+        if bf16:
+            h = s.shape[-1]
+
+            def head(layers):
+                w0 = layers[0]["w"]
+                f = torch.relu(matmul(sr, w0[:2 * h], True) + geo @ w0[2 * h:]
+                               + layers[0]["b"])
+                for lyr in layers[1:-1]:
+                    f = torch.relu(matmul(f, lyr["w"], True) + lyr["b"])
+                return (f @ layers[-1]["w"] + layers[-1]["b"])[..., 0]
+
+            score = head(params["reward"])                    # (B, O)
+            att_r = torch.softmax(head(params["reward_att"]), -1)
+        else:
+            feat = torch.cat([s, r, geo], -1)
+            score = mlp(params["reward"], feat)[..., 0]       # (B, O)
+            att_r = torch.softmax(mlp(params["reward_att"], feat)[..., 0],
+                                  -1)
         reward = torch.sigmoid(torch.sum(att_r * score, dim=-1))
     else:
         reward = torch.zeros((B,), dtype=z.dtype, device=z.device)

@@ -389,16 +389,20 @@ def rollout(params: Dict, cfg: Config, z0: torch.Tensor,
             actions: Optional[torch.Tensor], horizon: int,
             generator: Optional[torch.Generator] = None,
             sample: bool = False,
-            prepared: Optional[torch.Tensor] = None
+            prepared: Optional[torch.Tensor] = None,
+            dtype: str = "float32"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Iterate the transition prior from z0 for `horizon` steps.
 
     z0: (B, O, 6+cl); actions: (B, horizon) or None (ignored unless the
     config is action-conditioned).  Returns (states (B, H, O, 6+cl),
-    rewards (B, H)), from `fused_rollout.rollout`: the kernel for CUDA
-    tensors (`prepared` = its packed weights, cached by the caller), the
-    plain loop for CPU tensors, with noise drawn from `generator`.
+    rewards (B, H)), from `fused_rollout.rollout` at `dtype` ("float32" or
+    "bfloat16", the matmuls' precision): the kernel for CUDA tensors
+    (`prepared` = its packed weights for that dtype, cached by the
+    caller), the plain loop for CPU tensors, with noise drawn from
+    `generator`.
     """
     acts = actions if cfg.action_conditioned else None
     return fused_rollout.rollout(params["dynamics"], cfg, z0.contiguous(),
-                                 horizon, sample, generator, prepared, acts)
+                                 horizon, sample, generator, prepared, acts,
+                                 dtype)

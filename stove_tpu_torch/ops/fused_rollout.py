@@ -1,31 +1,40 @@
 """Fused whole-horizon rollout: one hand-written CUDA kernel for all H steps.
 
 Counterpart of `stove_tpu/ops/pallas_rollout.py::rollout_states` and
-`::rollout_act`.  The kernel (`csrc/rollout.cu`) runs the graph-net rollout
-of `models/dynamics.apply` for H steps in one launch, mean or sampled, with
-the state and every activation kept on chip; for an action-conditioned
-model it takes the per-step actions, and with a reward head it returns the
-per-step raw reward probabilities.  See the notes at the top of the source
-for its bound and design.
+`::rollout_act`, in both of the TPU kernel's precisions.  The kernel
+(`csrc/rollout.cu`) runs the graph-net rollout of `models/dynamics.apply`
+for H steps in one launch, mean or sampled, with the state and every
+activation kept on chip, its matmuls on the tensor cores; for an
+action-conditioned model it takes the per-step actions, and with a reward
+head it returns the per-step raw reward probabilities.  See the notes at the
+top of the source for its bounds and design.
 
+* `dtype` picks the precision, as `pallas_rollout`'s `dtype` does:
+  "bfloat16" (the TPU kernel's default and perf path: every matmul operand
+  rounded to bf16, f32 sums, on the tensor cores) or "float32" (FMA on the
+  CUDA cores, the parity path).  The planner's leaves take bf16 under `mcts_rollout_impl=pallas`
+  (planning/simulators.py); everything else takes float32.
 * `load` compiles the source with plain `nvcc` for sm_90a into a shared
   library under `build/kernels/` (listed in .gitignore) at first use and
-  loads it with ctypes (`ops/_build.py`).  Shapes and heads are
-  compile-time (-D flags from the config, `job`), so a library is built
-  once per (O, cl, h, actions, reward head, open-loop std head) and reused
-  by content hash; the action-free model's library has no action or reward
-  code, and only the sampled rollout of a model with an open-loop std head
-  launches the library that has it.
-* `prepare_params` packs the dynamics weights into the one flat f32 buffer
-  the kernel reads (`param_layout` gives its order).
+  loads it with ctypes (`ops/_build.py`).  Shapes, heads, precision and
+  tile are compile-time (-D flags, `job`), so a library is built once per
+  (O, cl, h, actions, reward head, open-loop std head, dtype, tile) and
+  reused by content hash.  The tile is `tile_for(B)`: 16 samples a block,
+  or 4 when 16 would leave SMs empty (fewer than `N_SMS` blocks).
+* `prepare_params` packs the dynamics weights once for a precision: the
+  matrices as the library loads them (bf16 in the order the kernel's mma
+  fragments load, or f32 row-major), the vectors in f32 (`kernel_layout`);
+  `unpack_params` inverts it.  `flat_params` is the flat f32 buffer in
+  `param_layout` order that the scan kernel reads (`pack_params`) and the
+  packing starts from.
 * `launch_kernel` checks device, dtype, shape and contiguity, allocates
   the output and launches on the current stream; `launch_kernel.launches`
   counts its launches.
 * `rollout` is the one device dispatch (`rollout_states` returns its
   states): on a CUDA tensor it launches the kernel (or raises); on a CPU
   tensor it runs `rollout_states_reference`, the plain PyTorch loop over
-  `dynamics.apply`, with noise drawn from the caller's generator.  There
-  is no fallback from one to the other.
+  `dynamics.apply` at the same precision, with noise drawn from the
+  caller's generator.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -41,6 +50,21 @@ from stove_tpu_torch.models import dynamics as dyn_lib
 from stove_tpu_torch.ops import _build
 
 TILE = 16          # samples per block (STOVE_TB)
+SMALL_TILE = 4     # ... when TILE would leave SMs empty
+N_SMS = 132        # the H100's streaming multiprocessors
+DTYPES = ("float32", "bfloat16")
+
+
+def check_dtype(dtype: str) -> str:
+    if dtype not in DTYPES:
+        raise ValueError(f"rollout dtype {dtype!r}: one of {DTYPES}")
+    return dtype
+
+
+def tile_for(B: int) -> int:
+    """Samples per block for a batch of B: the small tile when the large
+    one would launch fewer blocks than the card has SMs."""
+    return SMALL_TILE if -(-B // TILE) < N_SMS else TILE
 
 
 def _dout(cfg: Config) -> int:
@@ -52,7 +76,7 @@ def _dout_padded(cfg: Config) -> int:
 
 
 def _open_padded(cfg: Config) -> int:
-    return (4 + cfg.cl + 31) // 32 * 32   # OPP of csrc/dyn_core.cuh
+    return (4 + cfg.cl + 63) // 64 * 64   # OPP of csrc/dyn_core.cuh
 
 
 def has_open_head(cfg: Config, params: Dict) -> bool:
@@ -65,14 +89,16 @@ def param_layout(cfg: Config, open_head: bool = False
                  ) -> List[Tuple[str, Tuple[int, ...]]]:
     """(name, shape) of each segment of the packed buffer, in order.
 
-    Matches the OFF_* constants of csrc/dyn_core.cuh.  Weights are (in,
-    out): the kernel reads W[k, n0:n0+4] as one float4.  An
+    Matches the OFF_* constants of csrc/dyn_core.cuh's FMA core (the scan
+    kernel's flat f32 buffer, `flat_params`), which stop before the
+    open-loop head.  Weights are (in, out): the scan kernel
+    reads W[k, n0:n0+4] as one float4.  An
     action-conditioned config adds embed[0]'s action rows; a reward head
     adds both heads' first layers side by side as one (2h, 2h) matrix over
     [s ; r], their contact-gap and min-distance rows, their second layers
     and their last columns; `open_head` last, the open-loop std head's
     first layer over [s ; r] and its last layer, zero-padded to a multiple
-    of 32 columns (the order of pallas_rollout.py's _OPEN_PARAMS after the
+    of 64 columns (the order of pallas_rollout.py's _OPEN_PARAMS after the
     others, :510).  A buffer with the open head is thus the buffer without
     it followed by the head.
     """
@@ -127,29 +153,161 @@ def check_supported(cfg: Config, params: Dict) -> None:
                          "and >= the padded output width")
 
 
-def prepare_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
-    """Pack the dynamics weights into the kernel's flat f32 buffer.
+def flat_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
+    """The dynamics weights as one flat f32 buffer in `param_layout` order,
+    for the config the kernels are built for.
 
-    Counterpart of `pallas_rollout.prepare_params`: the first relational
-    layer is split into receiver (rows [0, h)) and sender (rows [h, 2h))
-    halves, laid side by side as one (h, 2h) matrix so both come out of one
-    matmul; the last relational layer into its h feature columns and its
-    attention column; output layer 0 into self and relational halves,
-    stacked along K to contract [s ; r] at once.  The last output layer is
-    zero-padded to a multiple of 64 columns.  embed[0]'s action rows, the
-    reward heads and, when sampled rollouts use it, the open-loop std head
-    follow (`param_layout`).  The buffer lives on the weights' device.
+    Counterpart of `pallas_rollout.prepare_params` at float32: the first
+    relational layer is split into receiver (rows [0, h)) and sender (rows
+    [h, 2h)) halves, laid side by side as one (h, 2h) matrix so both come
+    out of one matmul; the last relational layer into its h feature columns
+    and its attention column; output layer 0 into self and relational
+    halves, stacked along K to contract [s ; r] at once.  The last output
+    layer is zero-padded to a multiple of 64 columns.  embed[0]'s action
+    rows, the reward heads and, when sampled rollouts use it, the open-loop
+    std head follow (`param_layout`).  The buffer lives on the weights'
+    device.  `prepare_params` packs the rollout kernel's buffer from it.
     """
     check_supported(cfg, dyn_params)
     return pack_params(dyn_params, kernel_config(cfg, dyn_params),
                        has_open_head(cfg, dyn_params))
 
 
+def _dp(cfg: Config) -> int:
+    return (cfg.full_state_dim + 31) // 32 * 32   # DP of csrc/dyn_core.cuh
+
+
+def kernel_layout(cfg: Config, open_head: bool = False
+                  ) -> List[Tuple[str, Tuple[int, ...], bool]]:
+    """(name, shape, is_matrix) of each segment of the rollout kernel's
+    buffer, in order (the O_* / V_* / R_* / P_* offsets of the tensor-core
+    section of csrc/dyn_core.cuh): the core's matrices, then its vectors
+    (and embed[0]'s action rows), then the reward head's matrices and
+    vectors, then the open-loop std head's, so a buffer with a head holds
+    the buffer without it as its prefix.  Names and shapes are those of
+    `param_layout`, but embed layer 0, whose K is padded to a multiple of
+    32 rows."""
+    shapes = dict(param_layout(cfg, open_head))
+    shapes["w_e0"] = (_dp(cfg), cfg.dyn_hidden)
+    groups = [
+        (("w_e0", "w_e1", "w_s0", "w_s1", "w_rs", "w_r1", "w_rf", "w_o0",
+          "w_o1", "w_o2"), True),
+        (("b_e0", "b_e1", "b_s0", "b_s1", "b_r0", "b_r1", "b_rf", "w_ra",
+          "b_ra", "b_o0", "b_o1", "b_o2")
+         + (("w_e0a",) if cfg.action_conditioned else ()), False)]
+    if cfg.reward_head:
+        groups += [(("w_h0", "w_rw1", "w_ra1"), True),
+                   (("b_h0", "w_hg", "w_hd", "b_rw1", "b_ra1", "w_h2",
+                     "b_h2"), False)]
+    if open_head:
+        groups += [(("w_op0", "w_op1"), True), (("b_op0", "b_op1"), False)]
+    return [(n, shapes[n], mat) for names, mat in groups for n in names]
+
+
+def kernel_bytes(cfg: Config, open_head: bool = False,
+                 dtype: str = "float32") -> int:
+    """Size of `prepare_params`' buffer for this config and precision."""
+    eb = 2 if check_dtype(dtype) == "bfloat16" else 4
+    return sum(math.prod(s) * (eb if mat else 4)
+               for _, s, mat in kernel_layout(cfg, open_head))
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def fragment_pack(w: torch.Tensor, dtype: str) -> torch.Tensor:
+    """A (K, N) matrix in the order the kernel loads it; the flat bf16 or
+    f32 tensor.
+
+    bf16: the order the mma B fragments load -- for each k-tile of 16 rows
+    (m16n8k16), for each pair of 8-column n-tiles, for each lane (g =
+    lane / 4, t = lane % 4), the lane's fragment of both n-tiles, columns g
+    of rows 2t, 2t+1, 2t+8, 2t+9 -- 16 bytes a lane, so a warp reads a
+    k-tile of its two n-tiles as 512 contiguous bytes.  f32 for the FMA
+    core: row-major."""
+    K, N = w.shape
+    if dtype == "bfloat16":
+        p = w.reshape(K // 16, 2, 4, 2, N // 16, 2, 8).permute(
+            0, 4, 6, 2, 5, 1, 3)          # kt, pair, g, t, n-tile, half, e
+        return p.reshape(-1).to(torch.bfloat16)
+    return w.reshape(-1).to(torch.float32)
+
+
+def fragment_unpack(v: torch.Tensor, K: int, N: int,
+                    dtype: str) -> torch.Tensor:
+    """The (K, N) f32 matrix `fragment_pack` packed into `v`."""
+    v = v.to(torch.float32)
+    if dtype == "bfloat16":
+        return v.reshape(K // 16, N // 16, 8, 4, 2, 2, 2).permute(
+            0, 5, 3, 6, 1, 4, 2).reshape(K, N)
+    return v.reshape(K, N)
+
+
+def prepare_params(dyn_params: Dict, cfg: Config,
+                   dtype: str = "float32") -> torch.Tensor:
+    """The rollout kernel's weight buffer (uint8, on the weights' device)
+    for `dtype`, packed once.
+
+    Counterpart of `pallas_rollout.prepare_params(..., dtype)`: the
+    segments of `flat_params` in `kernel_layout` order, every matrix as the
+    library loads it (`fragment_pack`): rounded to bf16 in fragment order
+    for the bfloat16 library, f32 row-major for the float32 one; the
+    vectors -- biases, the attention column, the reward head's gap and
+    distance rows and last columns -- f32, as the TPU kernel keeps them.  embed[0]'s action rows are bf16-rounded for
+    bfloat16: the TPU kernel takes them through a matmul with the one-hot
+    action."""
+    dtype = check_dtype(dtype)
+    kcfg = kernel_config(cfg, dyn_params)
+    open_head = has_open_head(cfg, dyn_params)
+    flat = flat_params(dyn_params, cfg)
+    seg, off = {}, 0
+    for name, shape in param_layout(kcfg, open_head):
+        n = math.prod(shape)
+        seg[name] = flat[off:off + n].reshape(shape)
+        off += n
+    parts = []
+    for name, shape, mat in kernel_layout(kcfg, open_head):
+        x = seg[name]
+        if mat:
+            if x.shape != shape:                    # embed[0]: pad K
+                x = torch.cat([x, x.new_zeros((shape[0] - x.shape[0],
+                                               shape[1]))])
+            x = fragment_pack(x, dtype)
+        elif name == "w_e0a" and dtype == "bfloat16":
+            x = _bf16_round(x).reshape(-1)
+        else:
+            x = x.reshape(-1)
+        parts.append(x.contiguous().view(torch.uint8))
+    return torch.cat(parts).contiguous()
+
+
+def unpack_params(buf: torch.Tensor, cfg: Config, open_head: bool = False,
+                  dtype: str = "float32") -> Dict[str, torch.Tensor]:
+    """The segments of a `prepare_params` buffer by name, as f32 tensors of
+    `kernel_layout`'s shapes (the inverse of the packing)."""
+    dtype = check_dtype(dtype)
+    eb = 2 if dtype == "bfloat16" else 4
+    out, off = {}, 0
+    for name, shape, mat in kernel_layout(cfg, open_head):
+        n = math.prod(shape) * (eb if mat else 4)
+        raw = buf[off:off + n].contiguous()
+        off += n
+        if mat:
+            v = raw.view(torch.bfloat16 if eb == 2 else torch.float32)
+            out[name] = fragment_unpack(v, shape[0], shape[1], dtype)
+        else:
+            out[name] = raw.view(torch.float32).reshape(shape)
+    if off != buf.numel():
+        raise ValueError(f"buffer of {buf.numel()} bytes, layout {off}")
+    return out
+
+
 def pack_params(dyn_params: Dict, cfg: Config, open_head: bool = False
                 ) -> torch.Tensor:
-    """The packing of `prepare_params` without its support check: the
-    posterior scan kernel (ops/fused_scan.py) reads the same buffer
-    without the open-loop head and checks what it supports itself."""
+    """The packing of `flat_params` without its support check: the
+    posterior scan kernel (ops/fused_scan.py) reads this buffer without the
+    open-loop head and checks what it supports itself."""
     p = dyn_params
     h, D = cfg.dyn_hidden, cfg.full_state_dim
     w_rel0, w_rel2, b_rel2 = p["rel"][0]["w"], p["rel"][2]["w"], p["rel"][2]["b"]
@@ -220,18 +378,22 @@ def rollout_states_reference(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
                              horizon: int,
                              noise: Optional[torch.Tensor] = None,
                              actions: Optional[torch.Tensor] = None,
+                             dtype: str = "float32",
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """H steps of `dynamics.apply`, mean (noise None) or sampled.
 
     noise: (B, H, O, D) standard normals; sampled steps inject
     mean + (std_open · rollout_sigma_temp) · ε, as `stove.rollout` does.
-    actions: (B, H) or None.  Returns (states (B, H, O, D), rewards (B, H)).
+    actions: (B, H) or None.  dtype "bfloat16" rounds both operands of
+    every product the TPU kernel's bf16 variant rounds (`dynamics.apply`'s
+    `bf16`).  Returns (states (B, H, O, D), rewards (B, H)).
     """
+    bf16 = check_dtype(dtype) == "bfloat16"
     zs, rs = [], []
     z = z0
     for t in range(horizon):
         a = None if actions is None else actions[:, t]
-        dyn = dyn_lib.apply(dyn_params, cfg, z, a)
+        dyn = dyn_lib.apply(dyn_params, cfg, z, a, bf16=bf16)
         z = dyn.mean
         if noise is not None:
             z = z + (dyn.std_open * cfg.rollout_sigma_temp) * noise[:, t]
@@ -248,18 +410,21 @@ def rollout_states_reference(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
 # the CUDA kernel
 # --------------------------------------------------------------------------
 
-def job(cfg: Config, open_head: bool = False) -> _build.Job:
+def job(cfg: Config, open_head: bool = False, dtype: str = "float32",
+        tile: int = TILE) -> _build.Job:
     """(source, defines) of the rollout library for this config's shapes
-    and heads; `open_head` for the sampled rollout of a model with an
-    open-loop std head (`has_open_head`)."""
+    and heads, a precision and a tile; `open_head` for the sampled rollout
+    of a model with an open-loop std head (`has_open_head`)."""
     defines = (f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
-               f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}")
+               f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={tile}")
     if cfg.action_conditioned:
         defines += ("-DSTOVE_ACT=1", f"-DSTOVE_NA={cfg.num_actions}")
     if cfg.reward_head:
         defines += ("-DSTOVE_REW=1",)
     if open_head:
         defines += ("-DSTOVE_OPEN=1",)
+    if check_dtype(dtype) == "bfloat16":
+        defines += ("-DSTOVE_BF16=1",)
     return ("rollout.cu", defines)
 
 
@@ -267,12 +432,12 @@ def param_count(cfg: Config, open_head: bool = False) -> int:
     return sum(math.prod(s) for _, s in param_layout(cfg, open_head))
 
 
-def _setup(cfg: Config, open_head: bool):
+def _setup(cfg: Config, open_head: bool, dtype: str):
     def setup(lib: ctypes.CDLL) -> None:
-        lib.stove_rollout_param_count.restype = ctypes.c_int
-        lib.stove_rollout_param_count.argtypes = []
-        lib.stove_rollout_smem_bytes.restype = ctypes.c_int
-        lib.stove_rollout_smem_bytes.argtypes = []
+        for name in ("stove_rollout_param_bytes", "stove_rollout_smem_bytes",
+                     "stove_rollout_tile", "stove_rollout_bf16"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = []
         lib.stove_rollout_launch.restype = ctypes.c_int
         lib.stove_rollout_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # z0, P, actions
@@ -283,20 +448,23 @@ def _setup(cfg: Config, open_head: bool):
             ctypes.c_float, ctypes.c_int,                        # temp, latent_residual
             ctypes.c_void_p,                                     # stream
         ]
-        expect = param_count(cfg, open_head)
-        if lib.stove_rollout_param_count() != expect:
+        expect = kernel_bytes(cfg, open_head, dtype)
+        if lib.stove_rollout_param_bytes() != expect:
             raise RuntimeError(
-                f"kernel packs {lib.stove_rollout_param_count()} params, "
-                f"param_layout {expect}: csrc/dyn_core.cuh and "
-                f"fused_rollout.param_layout disagree (each of the action, "
-                f"reward and open-loop variants has its own count)")
+                f"kernel packs {lib.stove_rollout_param_bytes()} bytes, "
+                f"kernel_layout {expect}: csrc/dyn_core.cuh and "
+                f"fused_rollout.kernel_layout disagree (each of the action, "
+                f"reward, open-loop and precision variants has its own size)")
+        if lib.stove_rollout_bf16() != (dtype == "bfloat16"):
+            raise RuntimeError("rollout library of the wrong precision")
     return setup
 
 
-def load(cfg: Config, open_head: bool = False) -> ctypes.CDLL:
+def load(cfg: Config, open_head: bool = False, dtype: str = "float32",
+         tile: int = TILE) -> ctypes.CDLL:
     """Build (at first use) and load the kernel library for `cfg`."""
-    src, defines = job(cfg, open_head)
-    return _build.load(src, defines, _setup(cfg, open_head))
+    src, defines = job(cfg, open_head, dtype, tile)
+    return _build.load(src, defines, _setup(cfg, open_head, dtype))
 
 
 def int32_actions(cfg: Config, actions: Optional[torch.Tensor], B: int,
@@ -320,24 +488,28 @@ def int32_actions(cfg: Config, actions: Optional[torch.Tensor], B: int,
 def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
                   horizon: int, sample: bool, seed: int,
                   actions: Optional[torch.Tensor] = None,
-                  open_head: bool = False
+                  open_head: bool = False, dtype: str = "float32"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check the inputs, allocate the outputs and launch the kernel once on
     the current stream: (states (B, H, O, D), rewards (B, H)), the rewards
     zeros without a reward head.  An action-conditioned config takes
     `actions` (B, H) integers on z0's device (zeros when None, as
-    `dynamics.apply` does).  `open_head` (sampled only) launches the
-    library with the open-loop std head, whose stds are floored at
-    `min_open_std`; it needs `prepared` packed with the head, which the
-    other libraries read as its prefix.  Takes CUDA tensors only.
-    `launch_kernel.launches` counts the launches (a run sets it to 0 and
-    reads it after)."""
+    `dynamics.apply` does).  `prepared` is `prepare_params(..., dtype)`,
+    which picks the library's precision; the tile is `tile_for(B)`.
+    `open_head` (sampled only) launches the library with the open-loop std
+    head, whose stds are floored at `min_open_std`; it needs `prepared`
+    packed with the head, which the other libraries read as its prefix.
+    Takes CUDA tensors only.  `launch_kernel.launches` counts the launches
+    (a run sets it to 0 and reads it after), `launch_kernel.by_library`
+    them by library (its defines, as `job` gives them)."""
+    dtype = check_dtype(dtype)
     if open_head and not sample:
         raise ValueError("the open-loop std head sets the sampled noise "
                          "only; a mean rollout launches without it")
     _build.check_device(z0, prepared)
-    if z0.dtype != torch.float32 or prepared.dtype != torch.float32:
-        raise TypeError("fused rollout takes float32 z0 and params")
+    if z0.dtype != torch.float32 or prepared.dtype != torch.uint8:
+        raise TypeError("fused rollout takes float32 z0 and the uint8 "
+                        "buffer of prepare_params")
     B, O, D = z0.shape
     if O != cfg.num_obj or D != cfg.full_state_dim:
         raise ValueError(f"z0 shape {tuple(z0.shape)} does not match the "
@@ -351,14 +523,16 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
     rewards = z0.new_zeros((B, max(horizon, 0)))
     if horizon <= 0 or B == 0:
         return z0.new_empty((B, max(horizon, 0), O, D)), rewards
-    lib = load(cfg, open_head)
-    sizes = {lib.stove_rollout_param_count()}
+    sizes = {kernel_bytes(cfg, open_head, dtype)}
     if not open_head and cfg.open_loop_sigma:
-        sizes.add(param_count(cfg, True))     # the head's buffer, as prefix
+        sizes.add(kernel_bytes(cfg, True, dtype))   # the head's, as prefix
     if prepared.numel() not in sizes:
-        raise ValueError("prepared params have the wrong size for this "
-                         "config" + (" (packed without the open-loop head?)"
-                                     if open_head else ""))
+        raise ValueError(f"prepared params have the wrong size for this "
+                         f"config and dtype {dtype}" +
+                         (" (packed without the open-loop head?)"
+                          if open_head else ""))
+    tile = tile_for(B)
+    lib = load(cfg, open_head, dtype, tile)
     out = torch.empty((B, horizon, O, D), dtype=torch.float32,
                       device=z0.device)
     lo = cfg.min_open_std if open_head else cfg.min_dyn_std
@@ -373,36 +547,42 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"rollout kernel launch failed: CUDA error {err}")
     launch_kernel.launches += 1
+    key = " ".join(job(cfg, open_head, dtype, tile)[1])
+    launch_kernel.by_library[key] = launch_kernel.by_library.get(key, 0) + 1
     return out, rewards
 
 
 launch_kernel.launches = 0
+launch_kernel.by_library = {}     # launches by library (its defines)
 
 
 def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
             sample: bool = True, generator: Optional[torch.Generator] = None,
             prepared: Optional[torch.Tensor] = None,
-            actions: Optional[torch.Tensor] = None
+            actions: Optional[torch.Tensor] = None,
+            dtype: str = "float32"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The one device dispatch of the rollout: (states, rewards).
 
     z0: (B, O, 6+cl) f32 → states (B, horizon, O, 6+cl), rewards
     (B, horizon) (the reward head's raw probabilities; zeros without one).
     actions: (B, horizon) integers, read by an action-conditioned config.
+    dtype: "float32" or "bfloat16", the precision of the matmuls.
     On a CUDA tensor this launches the kernel (building it at first use)
     and raises if it cannot (`check_supported`); a sampled rollout of a
-    model with an open-loop std head launches the library with the head.  `prepared` is
-    `prepare_params(dyn_params, cfg)` cached by the caller (computed here
-    when absent); the sampled kernel draws its noise in-kernel from a seed
-    taken from `generator`.  On a CPU tensor it runs
-    `rollout_states_reference` with standard normals drawn from
-    `generator`.
+    model with an open-loop std head launches the library with the head.
+    `prepared` is `prepare_params(dyn_params, cfg, dtype)` cached by the
+    caller (computed here when absent); the sampled kernel draws its noise
+    in-kernel from a seed taken from `generator`.  On a CPU tensor it runs
+    `rollout_states_reference` at the same precision, with standard
+    normals drawn from `generator`.
     """
+    check_dtype(dtype)
     B = z0.shape[0]
     if z0.device.type == "cuda":
         check_supported(cfg, dyn_params)
         if prepared is None:
-            prepared = prepare_params(dyn_params, cfg)
+            prepared = prepare_params(dyn_params, cfg, dtype)
         seed = 0
         if sample:
             seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
@@ -410,7 +590,7 @@ def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
                                      if generator is not None else "cpu"))
         return launch_kernel(prepared, kernel_config(cfg, dyn_params), z0,
                              horizon, sample, seed, actions,
-                             sample and has_open_head(cfg, dyn_params))
+                             sample and has_open_head(cfg, dyn_params), dtype)
     if z0.device.type != "cpu":
         raise ValueError(f"fused rollout runs on cuda or cpu, not "
                          f"{z0.device}")
@@ -419,14 +599,15 @@ def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
         noise = torch.randn((B, horizon) + tuple(z0.shape[1:]),
                             generator=generator, dtype=z0.dtype)
     return rollout_states_reference(dyn_params, cfg, z0, horizon, noise,
-                                    actions)
+                                    actions, dtype)
 
 
 def rollout_states(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
                    horizon: int, sample: bool = True,
                    generator: Optional[torch.Generator] = None,
-                   prepared: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   prepared: Optional[torch.Tensor] = None,
+                   dtype: str = "float32") -> torch.Tensor:
     """Counterpart of `pallas_rollout.rollout_states`: the rollout's states
     (B, horizon, O, 6+cl) without actions, through `rollout`."""
     return rollout(dyn_params, cfg, z0, horizon, sample, generator,
-                   prepared)[0]
+                   prepared, None, dtype)[0]

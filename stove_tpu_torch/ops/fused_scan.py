@@ -9,14 +9,21 @@ the top of the source.
 
 * `scan_reference` is the plain version: the recursion as a Python loop
   (the reference semantics of `_scan_xla`, stove.py:217-302), with all
-  three `velocity_obs` modes, actions and the reward head.
+  three `velocity_obs` modes, actions and the reward head; `dtype`
+  "bfloat16" rounds the matmul operands as the TPU kernel's bf16 variant
+  does (`dynamics.apply`'s `bf16`).
 * `launch_kernel` checks its inputs, launches once on the current stream
-  and counts its launches (`launch_kernel.launches`).
-* `scan_fused` is the dispatch `scan_impl="pallas"` takes: the kernel on
-  CUDA tensors (or it raises), the plain version on CPU tensors, and
-  either way the gradient of the plain version (`ops/_vjp.py`).  The
-  rewards of the forward are the kernel's: the reward loss is computed on
-  them, and its gradient is the plain version's at the same inputs.
+  and counts its launches (`launch_kernel.launches`); `dtype` picks the
+  library: "float32", or "bfloat16" (`-DSTOVE_BF16=1`: the FMA matmul
+  rounds each operand to bf16 first).
+* `scan_kernel` packs the weights and launches one library, bf16 unless
+  told otherwise.
+* `scan_fused` is the dispatch `scan_impl="pallas"` takes, as
+  `_scan_pallas` (stove.py:304-333): the forward in bf16 -- the kernel on
+  CUDA tensors (or it raises), the plain bf16 loop on CPU tensors -- and
+  either way the gradient of the float32 plain version (`ops/_vjp.py`).
+  The rewards of the forward are the kernel's: the reward loss is computed
+  on them, and its gradient is the plain version's at the same inputs.
 """
 
 from __future__ import annotations
@@ -37,21 +44,23 @@ TILE = 8           # samples per block (STOVE_TB): 32 blocks at B=256
 
 
 def scan_reference(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
-                   sup_mean, sup_std, actions, eps):
+                   sup_mean, sup_std, actions, eps, dtype: str = "float32"):
     """The posterior recursion as a plain loop over t.
 
     z1 (B, O, D); carry_m/carry_s (B, O, 2); sup_mean/sup_std (B, T2, O, 4)
-    for t = 2..T−1; actions (B, T2) = a_{t−1}; eps (B, T2, O, D).
+    for t = 2..T−1; actions (B, T2) = a_{t−1}; eps (B, T2, O, D); dtype
+    "bfloat16" for the TPU kernel's bf16 matmuls.
     Returns (z (B,T2,O,D), z_mean (B,T2,O,D), kl (B,), rewards (B,T2)).
     """
     from stove_tpu_torch.models.stove import align_slots
 
+    bf16 = fused_rollout.check_dtype(dtype) == "bfloat16"
     B, T2 = sup_mean.shape[:2]
     z_prev, prev_sup_m, prev_sup_s = z1, carry_m, carry_s
     zs, zms, rews = [], [], []
     kl = z1.new_zeros((B,))
     for t in range(T2):
-        dyn = dyn_lib.apply(dyn_params, cfg, z_prev, actions[:, t])
+        dyn = dyn_lib.apply(dyn_params, cfg, z_prev, actions[:, t], bf16=bf16)
         d_mean, d_std = dyn.mean, dyn.std
 
         sm, ss = align_slots(d_mean[..., POS], sup_mean[:, t, :, 2:4],
@@ -117,11 +126,12 @@ def velocity_mode(cfg: Config) -> int:
     return 2 if cfg.velocity_obs_full_std else 1
 
 
-def job(cfg: Config) -> _build.Job:
+def job(cfg: Config, dtype: str = "float32") -> _build.Job:
     """(source, defines) of the scan library: shapes, the velocity mode,
     and, as the rollout's (`fused_rollout.job`), the action term for an
     action-conditioned config and the reward head when the config has one
-    (`fused_rollout.kernel_config` drops it where the params hold none)."""
+    (`fused_rollout.kernel_config` drops it where the params hold none);
+    `-DSTOVE_BF16=1` for the bfloat16 library."""
     defines = (f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
                f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}",
                f"-DSTOVE_VEL_MODE={velocity_mode(cfg)}")
@@ -129,6 +139,8 @@ def job(cfg: Config) -> _build.Job:
         defines += ("-DSTOVE_ACT=1", f"-DSTOVE_NA={cfg.num_actions}")
     if cfg.reward_head:
         defines += ("-DSTOVE_REW=1",)
+    if fused_rollout.check_dtype(dtype) == "bfloat16":
+        defines += ("-DSTOVE_BF16=1",)
     return ("scan.cu", defines)
 
 
@@ -151,19 +163,22 @@ def _setup(cfg: Config):
     return setup
 
 
-def load(cfg: Config) -> ctypes.CDLL:
-    src, defines = job(cfg)
+def load(cfg: Config, dtype: str = "float32") -> ctypes.CDLL:
+    src, defines = job(cfg, dtype)
     return _build.load(src, defines, _setup(cfg))
 
 
 def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
-                  sup_mean, sup_std, eps, actions=None
+                  sup_mean, sup_std, eps, actions=None, dtype: str = "float32"
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """One launch → (z, z_mean (B, T2, O, D), kl (B,), rewards (B, T2));
-    CUDA f32 only.  An action-conditioned config reads `actions` (B, T2)
-    integers (zeros when None, as `dynamics.apply` does); the rewards are
-    zeros without a reward head."""
+    CUDA f32 tensors only, `prepared` the flat buffer of
+    `fused_rollout.pack_params`; `dtype` the library's matmul precision.
+    An action-conditioned config reads `actions` (B, T2) integers (zeros
+    when None, as `dynamics.apply` does); the rewards are zeros without a
+    reward head.  Counts its launches in `launch_kernel.launches` and, by
+    library, `launch_kernel.by_library`."""
     ins = [z1, carry_m, carry_s, sup_mean, sup_std, eps]
     _build.check_device(prepared, *ins)
     if any(x.dtype != torch.float32 for x in [prepared] + ins):
@@ -188,7 +203,7 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
     rewards = torch.zeros((B, T2), dtype=torch.float32, device=z1.device)
     if B == 0 or T2 == 0:
         return z, zm, kl, rewards
-    lib = load(cfg)
+    lib = load(cfg, dtype)
     if prepared.numel() != lib.stove_scan_param_count():
         raise ValueError("packed dynamics params have the wrong size")
     with torch.cuda.device(z1.device):
@@ -202,37 +217,47 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
     if err != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
     launch_kernel.launches += 1
+    key = " ".join(job(cfg, dtype)[1])
+    launch_kernel.by_library[key] = launch_kernel.by_library.get(key, 0) + 1
     return z, zm, kl, rewards
 
 
 launch_kernel.launches = 0
+launch_kernel.by_library = {}     # launches by library (its defines)
+
+
+def scan_kernel(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
+                sup_mean, sup_std, actions, eps, dtype: str = "bfloat16"):
+    """The kernel with `scan_reference`'s arguments and outputs: the
+    weights packed (`fused_rollout.pack_params`) and one launch of the
+    `dtype` library; CUDA tensors only."""
+    kcfg = fused_rollout.kernel_config(cfg, dyn_params)
+    packed = fused_rollout.pack_params(dyn_params, kcfg)
+    return launch_kernel(packed, kcfg, z1, carry_m, carry_s, sup_mean,
+                         sup_std, eps, actions, dtype)
 
 
 def scan_fused(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
                sup_mean, sup_std, actions, eps):
     """`scan_impl="pallas"`: same arguments and outputs as
-    `scan_reference`; the kernel on CUDA tensors, the plain version on CPU
-    tensors, the plain version's gradient on both."""
+    `scan_reference`; the forward in bf16, as `_scan_pallas` prepares its
+    weights -- `scan_kernel` on CUDA tensors, the plain bf16 loop on CPU
+    tensors -- and the float32 plain version's gradient on both (as
+    `_scan_pallas_bwd`)."""
     template = dyn_params
     n = len(tree.leaves(template))
 
-    def plain(*args):
-        return scan_reference(tree.unflatten(template, list(args[:n])), cfg,
-                              *args[n:])
-
-    kcfg = fused_rollout.kernel_config(cfg, dyn_params)
-
-    def fast(*args):
-        z1_, cm, cs, smean, sstd, acts, ep = args[n:]
-        packed = fused_rollout.pack_params(
-            tree.unflatten(template, list(args[:n])), kcfg)
-        return launch_kernel(packed, kcfg, z1_, cm, cs, smean, sstd, ep, acts)
+    def on_leaves(fn, **kw):
+        return lambda *args: fn(tree.unflatten(template, list(args[:n])),
+                                cfg, *args[n:], **kw)
 
     inputs = (*tree.leaves(dyn_params), z1, carry_m, carry_s, sup_mean,
               sup_std, actions, eps)
     if z1.device.type == "cuda":
         check_supported(cfg, dyn_params)
-        return with_plain_vjp(fast, plain, *inputs)
-    if z1.device.type != "cpu":
+        fast = on_leaves(scan_kernel)
+    elif z1.device.type == "cpu":
+        fast = on_leaves(scan_reference, dtype="bfloat16")
+    else:
         raise ValueError(f"the scan runs on cuda or cpu, not {z1.device}")
-    return with_plain_vjp(plain, plain, *inputs)
+    return with_plain_vjp(fast, on_leaves(scan_reference), *inputs)

@@ -6,8 +6,11 @@ rollout and values each child by a rollout of uniformly random actions,
 summing discounted, calibrated reward probabilities.  Every rollout goes
 through `fused_rollout.rollout`, the port's one dispatch: on the card each
 round launches the rollout kernel twice (the step, H = 1, and the leaf
-evaluation, H = mcts_horizon), whatever `mcts_rollout_impl` says; on the
-CPU it runs the plain loop.  `TrueSimulator` does the same on the batched
+evaluation, H = mcts_horizon); on the CPU it runs the plain loop.  As in
+the JAX planner (simulators.py:147-158), `mcts_rollout_impl` sets the
+leaf's precision: "pallas" values leaves with the bfloat16 rollout (the
+TPU kernel's `prepare_params(..., jnp.bfloat16)`), "xla" with float32; the
+step is float32 either way.  `TrueSimulator` does the same on the batched
 avoidance physics (the oracle).
 """
 
@@ -47,6 +50,17 @@ class LearnedSimulator(Simulator):
              if r > 0), 0.5)
         self._tree_mode = (cfg.mcts_shrink_mode == "tree"
                            and cfg.mcts_depth_shrink < 1.0)
+        if cfg.mcts_rollout_impl not in ("xla", "pallas"):
+            raise ValueError(f"mcts_rollout_impl {cfg.mcts_rollout_impl!r}: "
+                             f"'xla' or 'pallas'")
+        if cfg.mcts_rollout_impl == "pallas" and self._tree_mode:
+            raise ValueError(
+                "mcts_shrink_mode='tree' needs per-leaf depth inputs, which "
+                "the fused rollout kernel does not take; use "
+                "mcts_rollout_impl='xla' with tree mode.")
+        # the leaves' matmul precision (simulators.py:154)
+        self.leaf_dtype = ("bfloat16" if cfg.mcts_rollout_impl == "pallas"
+                           else "float32")
 
     def _calibrate(self, q: torch.Tensor) -> torch.Tensor:
         """Undo the class-balanced BCE's distortion (simulators.py:34):
@@ -95,13 +109,13 @@ class LearnedSimulator(Simulator):
         state repeated S times; sampled rollouts when S > 1, their noise
         from `generator`): Σ_t γ^t · shrink(calibrate(r̂_t)), averaged over
         the S rollouts.  `depths` (B,) only in tree mode.  One rollout
-        launch on the card."""
+        launch on the card, at `leaf_dtype`."""
         cfg = self.cfg
         S = max(1, cfg.mcts_eval_samples)
         B, H = z.shape[0], actions.shape[1]
         zr = torch.repeat_interleave(z, S, 0) if S > 1 else z
         _, rew = self.model.rollout(zr.contiguous(), actions, H, generator,
-                                    sample=S > 1)
+                                    sample=S > 1, dtype=self.leaf_dtype)
         if self._tree_mode:
             d = torch.repeat_interleave(depths, S, 0) if S > 1 else depths
             p = self._depth_shrink(self._calibrate(rew), d)

@@ -167,7 +167,7 @@ def _kernel_math(flat, cfg, z, acts):
 def test_packed_layout_covers_actions_and_reward_heads(run):
     cfg, model, _ = run
     dyn = model.params["dynamics"]
-    flat = fr.prepare_params(dyn, cfg)
+    flat = fr.flat_params(dyn, cfg)
     names = [n for n, _ in fr.param_layout(cfg)]
     assert names[-11:] == ["w_e0a", "w_h0", "b_h0", "w_hg", "w_hd", "w_rw1",
                            "b_rw1", "w_ra1", "b_ra1", "w_h2", "b_h2"]
@@ -205,7 +205,7 @@ def test_check_supported_takes_actions_and_the_reward_head(run):
         {"w": torch.zeros(h, 4 + cfg.cl), "b": torch.zeros(4 + cfg.cl)}])
     fr.check_supported(open_cfg, params)
     assert fr.has_open_head(open_cfg, params)
-    assert fr.prepare_params(params, open_cfg).numel() == \
+    assert fr.flat_params(params, open_cfg).numel() == \
         fr.param_count(open_cfg, True) > fr.param_count(cfg)
     with pytest.raises(ValueError, match="two-layer"):
         fr.check_supported(open_cfg, dict(params, open=params["open"][:1]))

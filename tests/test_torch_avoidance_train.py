@@ -25,8 +25,9 @@ from stove_tpu_torch.config import Config
 from stove_tpu_torch.envs import data as tdata
 from stove_tpu_torch.models import stove as tstove
 from stove_tpu_torch.models.bundle import StoveModel
+from stove_tpu_torch.ops import fused_scan
 from stove_tpu_torch.train import checkpoint as ckpt
-from torch_parity import jax_elbo_noise, to_jax
+from torch_parity import jax_elbo_noise, straight_through_scan, to_jax
 
 RUN = "ckpts/r4a_dense_s2"
 KEYS = ("elbo", "kl", "reward_loss", "overshoot_loss",
@@ -72,13 +73,17 @@ def test_resume_band_from_the_jax_package(capsys):
             (k, a, b, (lo, hi))
 
 
-def test_elbo_gradient_with_actions_through_the_scan_dispatch():
+def test_elbo_gradient_with_actions_through_the_scan_dispatch(monkeypatch):
     """The ELBO of an action-conditioned model with its reward loss, at
-    debug_shrunk widths: scan_impl="pallas" (on the CPU the plain loop
-    through the kernel's autograd function) gives the plain loop's loss
-    bit for bit and its gradients to 1e-6 of each leaf's largest entry
-    (the scan's gradient is added to the overshoot's in another order),
-    the reward head's and the action rows' gradients nonzero."""
+    debug_shrunk widths: scan_impl="pallas" (on the CPU the plain bf16
+    loop through the kernel's autograd function, whose backward is the
+    float32 loop's VJP) gives the loss of the plain path built without that
+    function (`torch_parity.straight_through_scan`: the bf16 loop's values,
+    the float32 loop's gradient) bit for bit and its gradients to 1e-6 of
+    each leaf's largest entry (the scan's gradient is added to the
+    overshoot's in another order), the reward head's and the action rows'
+    gradients nonzero.  The bf16 forward itself is held to JAX's in
+    tests/test_torch_elbo.py and test_torch_rollout_bf16.py."""
     cfg = Config().debug_shrunk().with_overrides(
         task="avoidance", action_conditioned=True, reward_head=True,
         seq_len=12, window=8, overshoot_k=3)
@@ -97,7 +102,10 @@ def test_elbo_gradient_with_actions_through_the_scan_dispatch():
                           b["rewards"], noise)
         return out, torch.autograd.grad(out.loss, leaves, allow_unused=True)
 
-    (o_k, g_k), (o_p, g_p) = run("pallas"), run("xla")
+    o_k, g_k = run("pallas")
+    monkeypatch.setattr(fused_scan, "scan_reference",
+                        straight_through_scan(fused_scan.scan_reference))
+    o_p, g_p = run("xla")
     assert float(o_k.reward_loss.detach()) > 0
     assert float(o_k.overshoot_reward_loss.detach()) > 0
     for k in ("loss", "elbo", "kl", "reward_loss"):

@@ -6,10 +6,14 @@ from its own keys handed to the port (tests/torch_parity.py).
 * Trained weights (ckpts/r4rp_bill_s32, full width, seed-32 region
   graphs), B=4 windows of 8 rendered frames, through the kernel impls
   (`scan_impl=pallas likelihood_impl=pallas`, their plain versions here).
+  `scan_impl=pallas` runs the scan's forward in bfloat16 on both sides
+  (the JAX package's Pallas kernel in interpret mode,
+  torch_parity.jax_scan_pallas_interpret) and its backward in float32.
 * `debug_shrunk` random weights with overshoot_sample on, forward and
   gradients; the gradients through every kernel impl equal the plain
   impls' up to the order in which autograd adds a leaf's contributions
-  (1e-6 of each leaf's largest entry).
+  (1e-6 of each leaf's largest entry), the scan's with its forward in
+  float32 (the plumbing; its bfloat16 forward is held to JAX's above).
 Tolerances: ELBO terms of ~10³ per window, rtol 1e-5 (atol 1e-3); the
 overshoot loss (squared position errors ~1e-3) atol 1e-6; gradients to
 1e-4 of each leaf's largest entry, mixture logits to 1e-4 of their
@@ -30,8 +34,10 @@ from stove_tpu_torch.config import Config as TConfig
 from stove_tpu_torch.models import stove as tstove
 from stove_tpu_torch.models import supair as tsup
 from stove_tpu_torch.train import checkpoint as ckpt
-from torch_parity import (jax_elbo_noise, jax_spec_seeds, jax_supair_noise,
-                          to_jax)
+from stove_tpu_torch.ops import fused_scan
+from torch_parity import (jax_elbo_noise, jax_scan_pallas_interpret,
+                          jax_spec_seeds, jax_supair_noise,
+                          straight_through_scan, to_jax)
 
 RUN = "ckpts/r4rp_bill_s32"
 KERNELS = dict(scan_impl="pallas", likelihood_impl="pallas")
@@ -69,8 +75,10 @@ def test_trained_elbo_matches_jax():
     frames = _frames(jc, 4, 21)
     key = jax.random.key(3)
     jspecs = jstove.make_specs(jax.random.key(jc.seed), jc)
-    want = jax.jit(lambda p, f, k: jstove.elbo(p, jc, jspecs, f, None, None,
-                                               k))(jp, frames, key)
+    jcp = jc.with_overrides(scan_impl="pallas")
+    with jax_scan_pallas_interpret():
+        want = jax.jit(lambda p, f, k: jstove.elbo(
+            p, jcp, jspecs, f, None, None, k))(jp, frames, key)
     got = tstove.elbo(tp, tc, tstove.make_specs(tc, tsup.run_spec_seeds(
         RUN, tc)), _t(frames), None, None, jax_elbo_noise(key, jc, 4, 8))
     _check_out(got, want)
@@ -97,8 +105,10 @@ def _shrunk(**kw):
 def test_shrunk_elbo_matches_jax():
     jc, tc, jspecs, tspecs, jp, tp, frames = _shrunk()
     key = jax.random.key(4)
-    want = jax.jit(lambda p, f, k: jstove.elbo(p, jc, jspecs, f, None, None,
-                                               k))(jp, frames, key)
+    jcp = jc.with_overrides(scan_impl="pallas")
+    with jax_scan_pallas_interpret():
+        want = jax.jit(lambda p, f, k: jstove.elbo(
+            p, jcp, jspecs, f, None, None, k))(jp, frames, key)
     noise = jax_elbo_noise(key, jc, 3, jc.window)
     assert noise.overshoot is not None
     got = tstove.elbo(tp, tc.with_overrides(**KERNELS), tspecs, _t(frames),
@@ -127,8 +137,10 @@ def _check_grads(got, jgrads, tp, scale_logits):
 def test_elbo_gradient_matches_jax_grad():
     jc, tc, jspecs, tspecs, jp, tp, frames = _shrunk()
     key = jax.random.key(6)
-    jg = jax.jit(jax.grad(lambda p: jstove.elbo(p, jc, jspecs, frames, None,
-                                                None, key).loss))(jp)
+    jcp = jc.with_overrides(scan_impl="pallas")
+    with jax_scan_pallas_interpret():
+        jg = jax.jit(jax.grad(lambda p: jstove.elbo(
+            p, jcp, jspecs, frames, None, None, key).loss))(jp)
     noise = jax_elbo_noise(key, jc, 3, jc.window)
     got = _grads(lambda p: tstove.elbo(p, tc.with_overrides(**KERNELS),
                                        tspecs, _t(frames), None, None,
@@ -154,7 +166,10 @@ def test_supair_elbo_gradient_matches_jax_grad():
                                    dict(spn_impl="pallas"),
                                    dict(likelihood_impl="pallas")],
                          ids=["scan", "spn", "likelihood"])
-def test_kernel_impl_gradients_equal_plain_on_cpu(impls):
+def test_kernel_impl_gradients_equal_plain_on_cpu(impls, monkeypatch):
+    # the autograd function around each plain version against the plain
+    # path; the scan's, whose forward is bf16 and backward the float32
+    # VJP, against the plain scan built with those semantics without it
     jc, tc, jspecs, tspecs, jp, tp, frames = _shrunk()
     noise = jax_elbo_noise(jax.random.key(8), jc, 3, jc.window)
 
@@ -162,8 +177,11 @@ def test_kernel_impl_gradients_equal_plain_on_cpu(impls):
         return lambda p: tstove.elbo(p, cfg, tspecs, _t(frames), None, None,
                                      noise).loss
 
-    for a, b in zip(_grads(loss(tc.with_overrides(**impls)), tp),
-                    _grads(loss(tc), tp)):
+    got = _grads(loss(tc.with_overrides(**impls)), tp)
+    if "scan_impl" in impls:
+        monkeypatch.setattr(fused_scan, "scan_reference",
+                            straight_through_scan(fused_scan.scan_reference))
+    for a, b in zip(got, _grads(loss(tc), tp)):
         if a is None or b is None:
             assert a is None and b is None
         else:

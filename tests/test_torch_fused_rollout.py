@@ -2,17 +2,20 @@
 the CUDA kernel itself is checked on the card (tests marked `cuda`, and
 chip_smoke.py).
 
-`_kernel_math` repeats the kernel's data flow step by step from the packed
-buffer — the (h, 2h) receiver|sender matrix, ordered pairs without the
-diagonal, the attention column, [s ; r] against the stacked output layer,
-the zero-padded last layer — so a wrong segment order or split in
-`prepare_params` fails here, without a card.
+`_kernel_math` repeats the kernels' data flow step by step from the flat
+buffer the scan kernel reads and the rollout kernel's packing starts from
+— the (h, 2h) receiver|sender matrix, ordered pairs without the diagonal,
+the attention column, [s ; r] against the stacked output layer, the
+zero-padded last layer — so a wrong segment order or split in
+`flat_params` fails here, without a card (tests/test_torch_rollout_bf16.py
+holds `prepare_params`' fragment order to it).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from bf16_parity import REWARDS, hold_bf16
 from stove_tpu_torch.config import Config
 from stove_tpu_torch.ops import fused_rollout as fr
 from stove_tpu_torch.train import checkpoint as ckpt
@@ -75,7 +78,7 @@ def _kernel_math(flat, cfg, z, H):
 
 def test_packed_weights_reproduce_the_rollout(trained):
     cfg, dyn = trained
-    flat = fr.prepare_params(dyn, cfg)
+    flat = fr.flat_params(dyn, cfg)
     assert flat.dtype == torch.float32 and flat.dim() == 1
     assert flat.numel() == sum(int(np.prod(s)) for _, s in
                                fr.param_layout(cfg))
@@ -225,3 +228,32 @@ def test_open_head_kernel_injects_the_open_std(cuda_device):
     e = (s[:, 0] - d.mean) / (temp * d.std_open)
     assert abs(e.mean().item()) < 0.01 and abs(e.std().item() - 1) < 0.01
     assert (e.abs() > 5).float().mean().item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run,B", [(RUN, 16384), (RUN, 100),
+                                   ("ckpts/r4a_dense_s2", 576)])
+def test_bf16_kernel_matches_plain_bf16(cuda_device, run, B):
+    """The bfloat16 library (16 samples a block at B=16384, 4 below 132
+    blocks) against the plain version at bf16 over 4 steps, states and
+    rewards, by hold_bf16 against the plain version's bf16 - f32 distance."""
+    cfg = ckpt.load_config(run)
+    dyn = ckpt.load_params(run, device=cuda_device)["dynamics"]
+    z0 = _z0(cfg, B, 5).to(cuda_device)
+    acts = None
+    if cfg.action_conditioned:
+        acts = torch.randint(0, cfg.num_actions, (B, 4), generator=torch.
+                             Generator().manual_seed(7)).to(cuda_device)
+    prep = fr.prepare_params(dyn, cfg, "bfloat16")
+    before = fr.launch_kernel.launches
+    s, r = fr.rollout(dyn, cfg, z0, 4, False, None, prep, acts, "bfloat16")
+    assert fr.launch_kernel.launches == before + 1
+    assert fr.load(fr.kernel_config(cfg, dyn), False, "bfloat16",
+                   fr.tile_for(B)).stove_rollout_tile() == (16 if B > 2048
+                                                            else 4)
+    bs, br = fr.rollout_states_reference(dyn, cfg, z0, 4, None, acts,
+                                         "bfloat16")
+    fs, frw = fr.rollout_states_reference(dyn, cfg, z0, 4, None, acts)
+    hold_bf16("states", s, bs, fs)
+    if cfg.reward_head:
+        hold_bf16("rewards", r, br, frw, **REWARDS)

@@ -174,7 +174,7 @@ def test_packed_open_head_matches_jax_prepare_params(run):
     std JAX's dynamics give (1e-5)."""
     cfg, model, jparams = run
     dyn = model.params["dynamics"]
-    flat = fr.prepare_params(dyn, cfg)
+    flat = fr.flat_params(dyn, cfg)
     assert fr.has_open_head(cfg, dyn)
     layout = fr.param_layout(cfg, open_head=True)
     assert [n for n, _ in layout[-4:]] == ["w_op0", "b_op0", "w_op1", "b_op1"]

@@ -1,17 +1,20 @@
 """The posterior scan of the port against `stove_tpu/models/stove.py::_scan_xla`
-and `stove_tpu/ops/pallas_scan.py::scan_fused` (interpret mode, float32
-weights), for all three `velocity_obs` modes, without the velocity
-posterior, and for an action-conditioned model with random actions; every
-mode runs the reward head (the reference runs it whenever its weights
-exist) and compares its rewards.
+and `stove_tpu/ops/pallas_scan.py::scan_fused` (interpret mode), for all
+three `velocity_obs` modes, without the velocity posterior, and for an
+action-conditioned model with random actions; every mode runs the reward
+head (the reference runs it whenever its weights exist) and compares its
+rewards.  `scan_impl="xla"` is held to the XLA scan and the float32
+kernel; `scan_impl="pallas"`, whose forward is bfloat16 as `_scan_pallas`
+prepares it (stove.py:313), to the bfloat16 kernel.
 
 Inputs are made with JAX's random functions at small shapes (B=8, T2=4,
 `debug_shrunk` widths, a nonzero last output layer so the dynamics move)
 and handed to both as numpy arrays.  Tolerances: the kernel and XLA hold
 each other to rtol 1e-4, atol 2e-4 in tests/test_pallas.py; the port's
-plain loop sums the same float32 products in another order, so the same.
+plain loop sums the same products in another order, so the same.
 Gradients through `scan_impl="pallas"` on the CPU (the autograd function
-around the plain loop) equal the plain loop's bit for bit.
+around the plain loop) are the float32 plain loop's VJP at the cotangents
+of the bfloat16 forward, bit for bit, as `_scan_pallas_bwd`.
 """
 
 import jax
@@ -31,6 +34,7 @@ from stove_tpu_torch.models import stove as tstove
 from stove_tpu_torch.ops import fused_rollout as fr
 from stove_tpu_torch.ops import fused_scan
 from stove_tpu_torch.train import checkpoint as ckpt
+from torch_parity import jax_scan_pallas_interpret
 
 MODES = {
     "encoder_full_std": dict(velocity_obs="encoder"),
@@ -74,18 +78,21 @@ def test_scan_matches_jax_xla_and_pallas_interpret(mode):
     jc, tc, jdyn_p, tdyn_p, args, targs = _setup(**MODES[mode])
     with jax.default_matmul_precision("float32"):
         want = jstove._scan_xla(jdyn_p, jc, *args)
-    prepared = jpr.prepare_params(jdyn_p, jc, jnp.float32)
-    kernel = jps.scan_fused(prepared, jc, *args, block=8, dtype=jnp.float32,
-                            interpret=True)
-    for impl in ("xla", "pallas"):
+    kernels = {dt: jps.scan_fused(jpr.prepare_params(jdyn_p, jc, dt), jc,
+                                  *args, block=8, dtype=dt, interpret=True)
+               for dt in (jnp.float32, jnp.bfloat16)}
+    refs = {"xla": {"xla": want, "kernel f32": kernels[jnp.float32]},
+            "pallas": {"kernel bf16": kernels[jnp.bfloat16]}}
+    for impl, against in refs.items():
         got = tstove.scan_posterior(
             tdyn_p, tc.with_overrides(scan_impl=impl), *targs)
-        for name, a, b, k in zip(("z", "z_mean", "kl", "rewards"), got, want,
-                                 kernel):
-            np.testing.assert_allclose(a, b, err_msg=f"{impl} {name} xla",
-                                       **TOL)
-            np.testing.assert_allclose(a, k, err_msg=f"{impl} {name} kernel",
-                                       **TOL)
+        for ref_name, ref in against.items():
+            for name, a, b in zip(("z", "z_mean", "kl", "rewards"), got, ref):
+                np.testing.assert_allclose(
+                    a, b, err_msg=f"{impl} {name} {ref_name}", **TOL)
+    # the bf16 forward is another function than the float32 one
+    assert np.abs(np.asarray(kernels[jnp.bfloat16][0])
+                  - np.asarray(want[0])).max() > 10 * TOL["atol"]
     assert fused_scan.launch_kernel.launches == 0
 
 
@@ -102,19 +109,31 @@ def test_scan_gradient_with_actions_and_rewards_equals_plain():
 
 
 def _assert_pallas_gradient_equals_plain(tc, tdyn_p, targs):
-    def grads(impl):
-        leaves = [x.clone().requires_grad_(True)
-                  for x in tree.leaves(tdyn_p)]
-        ins = [x.clone().requires_grad_(x.is_floating_point())
-               for x in targs]
-        z, zm, kl, rew = tstove.scan_posterior(
-            tree.unflatten(tdyn_p, leaves),
-            tc.with_overrides(scan_impl=impl), *ins)
-        (z.square().sum() + zm.sum() + kl.sum() + rew.sum()).backward()
+    """The gradient through scan_impl="pallas" is the float32 plain loop's
+    VJP at the cotangents its (bfloat16) forward gives the loss."""
+    def fresh():
+        return ([x.clone().requires_grad_(True) for x in tree.leaves(tdyn_p)],
+                [x.clone().requires_grad_(x.is_floating_point())
+                 for x in targs])
+
+    def grads(leaves, ins):
         return [x.grad for x in leaves] + [x.grad for x in ins if
                                            x.is_floating_point()]
 
-    got, want = grads("pallas"), grads("xla")
+    leaves, ins = fresh()
+    z, zm, kl, rew = tstove.scan_posterior(
+        tree.unflatten(tdyn_p, leaves),
+        tc.with_overrides(scan_impl="pallas"), *ins)
+    (z.square().sum() + zm.sum() + kl.sum() + rew.sum()).backward()
+    got = grads(leaves, ins)
+    leaves, ins = fresh()
+    plain = tstove.scan_posterior(tree.unflatten(tdyn_p, leaves),
+                                  tc.with_overrides(scan_impl="xla"), *ins)
+    assert not torch.equal(plain[0], z)            # the forward is bf16
+    torch.autograd.backward(plain, (2 * z.detach(), torch.ones_like(zm),
+                                    torch.ones_like(kl),
+                                    torch.ones_like(rew)))
+    want = grads(leaves, ins)
     assert any(g is not None and g.abs().max() > 0 for g in got)
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
@@ -123,14 +142,17 @@ def _assert_pallas_gradient_equals_plain(tc, tdyn_p, targs):
 
 
 def test_scan_gradient_matches_jax():
+    """scan_impl="pallas" on both sides: the bfloat16 kernel's forward (in
+    interpret mode) and the float32 XLA scan's VJP (_scan_pallas)."""
     jc, tc, jdyn_p, tdyn_p, args, targs = _setup(velocity_obs="filtered")
+    jcp = jc.with_overrides(scan_impl="pallas")
 
     def jloss(p, z1, sm):
-        z, zm, kl, _ = jstove._scan_xla(p, jc, z1, args[1], args[2], sm,
-                                        *args[4:])
+        z, zm, kl, _ = jstove.scan_posterior(p, jcp, z1, args[1], args[2], sm,
+                                             *args[4:])
         return jnp.sum(z ** 2) + jnp.sum(zm) + jnp.sum(kl)
 
-    with jax.default_matmul_precision("float32"):
+    with jax.default_matmul_precision("float32"), jax_scan_pallas_interpret():
         jg = jax.grad(jloss, argnums=(0, 1, 2))(jdyn_p, args[0], args[3])
     leaves = [x.clone().requires_grad_(True) for x in tree.leaves(tdyn_p)]
     z1 = targs[0].clone().requires_grad_(True)

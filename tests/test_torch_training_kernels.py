@@ -8,12 +8,16 @@ kernel or raises; the dispatch sends CPU tensors to the plain version
 instead), and `ops/_build.py` names a library by its source, headers, flags
 and defines.  On the card (`cuda` marker): each kernel against its plain
 version evaluated in float64 on the trained model's inputs; the
-tolerances are chip_smoke.py's (phases 6-8).
+tolerances are chip_smoke.py's (phases 6-8).  The scan's float32 library is
+held there (its dispatch's forward set to float32); its bfloat16 library,
+the dispatch's forward, against the plain loop at bf16 by
+bf16_parity.hold_bf16.
 """
 
 import pytest
 import torch
 
+from bf16_parity import hold_bf16
 from stove_tpu_torch import tree
 from stove_tpu_torch.envs import data as data_lib
 from stove_tpu_torch.models import spn as spn_lib
@@ -147,10 +151,12 @@ def test_likelihood_kernel_matches_float64_plain(card):
                                 dict(velocity_obs="filtered")],
                          ids=["full_std", "t_frame_std", "filtered"])
 def test_scan_kernel_matches_float64_plain(card, kw):
-    """The scan dispatch (`scan_impl=pallas`) on the trained weights against
-    the plain loop in float64, on the posterior's own inputs."""
+    """The scan's float32 library (`fused_scan.scan_kernel`) on the trained
+    weights against the plain loop in float64, on the posterior's own
+    inputs (the dispatch `scan_impl=pallas` launches the bf16 library:
+    test_bf16_scan_matches_plain_bf16)."""
     model, frames, _, gen = card
-    cfg = model.cfg.with_overrides(scan_impl="pallas", **kw)
+    cfg = model.cfg.with_overrides(**kw)
     B, T = frames.shape[:2]
     with torch.no_grad():
         mean, std = stove_lib.supair_lib.encode(
@@ -167,7 +173,8 @@ def test_scan_kernel_matches_float64_plain(card, kw):
                 torch.randn((B, T - 2, 3, cfg.full_state_dim),
                             generator=gen).to(frames.device)]
         before = fscan.launch_kernel.launches
-        got = stove_lib.scan_posterior(model.params["dynamics"], cfg, *args)
+        got = fscan.scan_kernel(model.params["dynamics"], cfg, *args,
+                                dtype="float32")
         ref = fscan.scan_reference(
             _f64(model.params["dynamics"]), cfg,
             *[a if a.dtype == torch.long else a.double() for a in args])
@@ -182,7 +189,8 @@ def test_scan_kernel_matches_float64_plain(card, kw):
 @pytest.mark.parametrize("B", [1, 7, 13])
 def test_kernels_on_ragged_batches(card, B):
     """Batches that do not fill the last block (4 warps; TB=8 samples),
-    and the likelihood without the overlap correction."""
+    and the likelihood without the overlap correction (the scan's float32
+    library)."""
     model, frames, boxes, gen = card
     cfg, specs, p = model.cfg, model.specs.supair, model.params["supair"]
     flat = frames.reshape(-1, 32, 32)[:B].contiguous()
@@ -210,7 +218,8 @@ def test_kernels_on_ragged_batches(card, B):
         args = [a.to(frames.device) for a in args]
         acts = torch.zeros((B, 6), dtype=torch.long, device=frames.device)
         eps = torch.randn((B, 6, 3, D), generator=gen).to(frames.device)
-        got = fscan.scan_fused(model.params["dynamics"], cfg, *args, acts, eps)
+        got = fscan.scan_kernel(model.params["dynamics"], cfg, *args, acts,
+                                eps, dtype="float32")
         ref = fscan.scan_reference(_f64(model.params["dynamics"]), cfg,
                                    *[a.double() for a in args], acts,
                                    eps.double())
@@ -221,7 +230,7 @@ def test_kernels_on_ragged_batches(card, B):
 
 @pytest.mark.cuda
 def test_scan_with_actions_and_reward_head(card):
-    """The scan library with actions and the reward head
+    """The scan's float32 library with actions and the reward head
     (ckpts/r4a_dense_s2's weights) on random inputs and actions, B=13 (a
     ragged last block), 4 steps: z within 1e-4 and rewards within 1e-4 of
     the plain version in float64, kl within 2e-5 relative."""
@@ -241,7 +250,7 @@ def test_scan_with_actions_and_reward_head(card):
     eps = torch.randn((B, T2, 3, D), generator=gen).to(frames.device)
     before = fscan.launch_kernel.launches
     with torch.no_grad():
-        got = fscan.scan_fused(dyn, cfg, *args, acts, eps)
+        got = fscan.scan_kernel(dyn, cfg, *args, acts, eps, dtype="float32")
         ref = fscan.scan_reference(_f64(dyn), cfg, *[a.double() for a in args],
                                    acts, eps.double())
     assert fscan.launch_kernel.launches == before + 1
@@ -249,3 +258,37 @@ def test_scan_with_actions_and_reward_head(card):
     assert ((got[2].double() - ref[2]).abs()
             / ref[2].abs().clamp_min(1.0)).max().item() <= 2e-5
     assert (got[3].double() - ref[3]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_bf16_scan_matches_plain_bf16(card):
+    """The scan dispatch's forward, the bfloat16 library, on the trained
+    weights and the posterior's own inputs (T2=6) against the plain loop at
+    bf16, by hold_bf16 against the plain loop's bf16 - f32 distance; its
+    gradient is the float32 plain loop's (tests/test_torch_rollout_bf16.py
+    holds that on the CPU)."""
+    model, frames, _, gen = card
+    cfg = model.cfg.with_overrides(scan_impl="pallas")
+    B, T = frames.shape[:2]
+    dyn = model.params["dynamics"]
+    with torch.no_grad():
+        mean, std = stove_lib.supair_lib.encode(
+            model.params["supair"], cfg, frames.reshape(B * T, 32, 32))
+        mean, std = mean.reshape(B, T, 3, 4), std.reshape(B, T, 3, 4)
+        m1, s1 = stove_lib.align_slots(mean[:, 0, :, 2:4], mean[:, 1, :, 2:4],
+                                       mean[:, 1], std[:, 1])
+        z1 = torch.cat([m1, m1[..., 2:4] - mean[:, 0, :, 2:4],
+                        torch.randn((B, 3, cfg.cl), generator=gen).to(
+                            frames.device)], -1)
+        args = [z1, m1[..., 2:4], s1[..., 2:4], mean[:, 2:], std[:, 2:],
+                torch.zeros((B, T - 2), dtype=torch.long,
+                            device=frames.device),
+                torch.randn((B, T - 2, 3, cfg.full_state_dim),
+                            generator=gen).to(frames.device)]
+        before = fscan.launch_kernel.launches
+        got = stove_lib.scan_posterior(dyn, cfg, *args)
+        assert fscan.launch_kernel.launches == before + 1
+        bf = fscan.scan_reference(dyn, cfg, *args, dtype="bfloat16")
+        f32 = fscan.scan_reference(dyn, cfg, *args)
+    for i, name in ((0, "z"), (1, "z_mean")):
+        hold_bf16(f"scan {name}", got[i], bf[i], f32[i], steps=T - 2)

@@ -1,6 +1,9 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): the
 noise the JAX package draws from its keys, handed to the port explicitly."""
 
+import contextlib
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,3 +71,38 @@ def to_jax(tree):
     """A nested dict/list of tensors as jnp arrays."""
     return jax.tree_util.tree_map(lambda x: jnp.asarray(x.detach().numpy()),
                                   tree)
+
+
+@contextlib.contextmanager
+def jax_scan_pallas_interpret(block: int = 8):
+    """Within the block (trace inside it), `scan_impl="pallas"` of the JAX
+    package runs its Pallas kernel on the CPU, where `scan_posterior` would
+    take the XLA scan (its gate `supair._pallas_available()` probes for a
+    TPU): `pallas_scan.scan_fused` in interpret mode with `block` samples a
+    tile (the TPU's 256 would pad the tests' few windows to 256 rows).  Its
+    forward stays the bfloat16 kernel `_scan_pallas` prepares and its
+    backward the float32 XLA scan (stove.py:304-333).  Only the scan: the
+    configs these tests give JAX keep the other impls off Pallas."""
+    from stove_tpu.models import supair
+    from stove_tpu.ops import pallas_scan
+    orig, gate = pallas_scan.scan_fused, supair._pallas_available
+    pallas_scan.scan_fused = functools.partial(orig, block=block,
+                                               interpret=True)
+    supair._pallas_available = lambda: True
+    try:
+        yield
+    finally:
+        pallas_scan.scan_fused, supair._pallas_available = orig, gate
+
+
+def straight_through_scan(scan_reference):
+    """The plain scan with `scan_impl="pallas"`'s semantics, built without
+    the port's autograd function: each output has the plain bf16 loop's
+    values and passes the float32 loop's gradient straight through
+    (bf16 + (f32 - f32.detach())).  Patched in for
+    `fused_scan.scan_reference`, it is what the dispatch should equal."""
+    def scan(*args, dtype="float32"):
+        f32 = scan_reference(*args)
+        bf = scan_reference(*args, dtype="bfloat16")
+        return tuple(b.detach() + (f - f.detach()) for f, b in zip(f32, bf))
+    return scan
