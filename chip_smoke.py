@@ -5,9 +5,11 @@ Builds every kernel library the run launches from the checkout's sources
 action-free model, the action-conditioned one and the open-loop std head,
 each in both of the TPU kernel's precisions (float32 on the CUDA cores,
 bfloat16 on the tensor cores) and at both tiles (16 samples a block, 4
-below 132 blocks); the scan source per velocity mode and with actions and
-the reward head, and in bfloat16 for the three models' training; the SPN
-and likelihood sources.  It holds each kernel against its plain PyTorch version on the card,
+below 132 blocks); the scan source, on the same dynamics core, per velocity
+mode and with actions and the reward head, in both precisions for the three
+models' training at the small tile (the training batch's) and for billiards
+at 16 samples a block; the SPN and likelihood sources.  It holds each
+kernel against its plain PyTorch version on the card,
 runs `mode=eval` of the trained 3-ball billiards model (ckpts/r4rp_bill_s32,
 full width) and STOVE training at full width through the port's entry
 points, resumes the trained run through the kernels, times the kernels
@@ -49,10 +51,12 @@ phase, with the seconds since start:
                   region graphs: |err| <= 1e-5 * max(|log p|, 100)
   (7) likelihood  likelihood kernel vs plain on 2048 rendered frames with
                   posterior boxes, the same limit
-  (8) scan        scan kernel vs plain at B=256, T2=6, trained weights,
-                  pre-drawn eps: z, z_mean within 1e-4 of the float32 and
-                  float64 plain versions, kl within 2e-5 relative; the other
-                  two velocity_obs modes with random weights at B=64 (2e-4)
+  (8) scan        scan kernel (float32 library) vs plain at B=256, T2=6,
+                  trained weights, pre-drawn eps, and at B=255 (the small
+                  tile's last block ragged) and B=2113 (16 samples a block):
+                  z, z_mean within 1e-4 of the float32 and float64 plain
+                  versions, kl within 2e-5 relative; the other three
+                  velocity modes with random weights at B=63 (2e-4)
   (9) train       from scratch at full width through the entry point: 2
                   warm-up + 3 STOVE steps with the scan and likelihood
                   kernels, then 1 + 1 with the SPN kernel; losses finite,
@@ -69,7 +73,8 @@ phase, with the seconds since start:
                   written under ckpts/
   (11) timing     STOVE and warm-up step, kernel vs plain path (host clock,
                   synchronised), and each kernel vs its plain version at the
-                  training shapes (CUDA events), beside its bound
+                  training shapes (CUDA events), beside its bound; the
+                  scan's weight packing, once a call
   (12) act-mean   action-conditioned kernel (actions, reward head) vs plain
                   mean rollout, r4a_dense_s2 weights, z0 from the posterior
                   of rendered avoidance frames, random actions.  At B=360
@@ -107,7 +112,7 @@ phase, with the seconds since start:
                   z, z_mean within 1e-4 of the float32 and float64 plain
                   versions, kl within 2e-5 relative, rewards within 1e-4 and
                   spanning both classes; the same for the gravity model's
-                  window (B=256, T2=14)
+                  window (B=256, T2=14); each again at B=255
   (18) avoid-train preset=stove_avoidance from scratch at full width (only
                   the corpus cut): 2 warm-up + 3 STOVE steps through the
                   scan and likelihood kernels, every loss finite (the reward
@@ -168,8 +173,9 @@ phase, with the seconds since start:
                   2x the float32 plain version's, rewards within 1e-4; each
                   precision's open-loop head by the implied std of phase
                   (20) (median relative error <= 1e-2; float32's maximum
-                  too); the bf16 scan library against the plain loop at
-                  bf16 on each model's posterior windows, by the same
+                  too); the bf16 scan libraries against the plain loop at
+                  bf16 on each model's posterior windows at B=256 and 255
+                  (billiards also 2113, 16 samples a block), by the same
                   criterion (z, z_mean, rewards; kl by the median and the
                   2x maximum)
   (25) plan-bf16  mode=mcts of ckpts/r4a_dense_s2 with
@@ -184,7 +190,9 @@ phase, with the seconds since start:
                   float32 and bf16 in turns (f32, bf16, bf16, f32), each
                   beside its plain version at that precision and its bound;
                   the bf16 and velocity-mode scan libraries at their
-                  training shapes
+                  training shapes, the 16-sample ones at B=4096, beside
+                  their bounds (bf16: operations at the tensor-core peak)
+                  and the weight packing each scan_kernel call does
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernel table (JSON; one entry per library,
@@ -235,6 +243,11 @@ GRAV_RESUME_BAND = {"elbo": (1110.0, 1163.0), "kl": (-21.6, -8.0),
                     "overshoot_loss": (0.088, 0.171),
                     "open_sigma_nll": (-56.7, 53.2)}
 BUDGET_S = 240.0          # start the optional B=65536 timing only before this
+# the scan's velocity modes besides the trained models' (mode 2), held with
+# random weights in phase (8) and timed in phase (26)
+SCAN_MODES = {"velocity_obs_full_std=False": dict(velocity_obs_full_std=False),
+              "velocity_obs=filtered": dict(velocity_obs="filtered"),
+              "velocity_posterior=False": dict(velocity_posterior=False)}
 
 
 def phase(name: str, msg: str) -> None:
@@ -270,6 +283,12 @@ def macs_per_frame(cfg, open_head: bool = False) -> int:
         per_obj += 2 * h * h + h * (4 + cl)
     per_pair = h * h + h * (h + 1)
     return O * per_obj + O * (O - 1) * per_pair
+
+
+def batch_rows(x, n: int):
+    """The first n rows of x along dim 0, x repeated as often as needed."""
+    return x.repeat((-(-n // x.shape[0]),) + (1,) * (x.dim() - 1))[:n] \
+        .contiguous()
 
 
 def time_cuda(fn, iters: int, warmup: int = 1) -> float:
@@ -336,14 +355,17 @@ def main() -> int:
                 loaders[fr.job(c, op, dt, tile)] = (
                     lambda c=c, op=op, dt=dt, tile=tile: fr.load(
                         c, op, dt, tile).stove_rollout_smem_bytes())
-    for c, dts in ((cfg, fr.DTYPES), (acfg, fr.DTYPES), (gcfg, fr.DTYPES),
-                   (cfg.with_overrides(velocity_obs_full_std=False),
-                    ("float32",)),
-                   (cfg.with_overrides(velocity_obs="filtered"),
-                    ("float32",))):
+    for c, dts, tiles in (
+            (cfg, fr.DTYPES, (fr.SMALL_TILE, fr.TILE)),
+            (acfg, fr.DTYPES, (fr.SMALL_TILE,)),
+            (gcfg, fr.DTYPES, (fr.SMALL_TILE,)),
+            *[(cfg.with_overrides(**kw), ("float32",), (fr.SMALL_TILE,))
+              for kw in SCAN_MODES.values()]):
         for dt in dts:
-            loaders[fscan.job(c, dt)] = (
-                lambda c=c, dt=dt: fscan.load(c, dt).stove_scan_smem_bytes())
+            for tile in tiles:
+                loaders[fscan.job(c, dt, tile)] = (
+                    lambda c=c, dt=dt, tile=tile: fscan.load(
+                        c, dt, tile).stove_scan_smem_bytes())
     for spec in (sspecs.obj, sspecs.bg):
         loaders[fspn.job(spec)] = (
             lambda spec=spec: fspn.load(spec).stove_spn_smem_bytes())
@@ -915,13 +937,16 @@ def training_slice(card: str, dev, cfg, model) -> dict:
         check(e32 <= 1e-5, "likelihood kernel error")
 
     # ---- (8) scan: the kernel vs the plain version at B=256, T2=6 on the
-    # trained weights with pre-drawn eps.  Two float32 evaluations that sum
-    # in different orders drift apart as the map amplifies rounding step by
-    # step (phase (2): 8e-5 after 8 rollout steps); the limit on z and
+    # trained weights with pre-drawn eps, then at B=255 (the small tile's
+    # last block ragged) and B=2113 (16 samples a block, its last block one
+    # sample; the window's inputs repeated).  Two float32 evaluations that
+    # sum in different orders drift apart as the map amplifies rounding step
+    # by step (phase (2): 8e-5 after 8 rollout steps); the limit on z and
     # z_mean is 1e-4 against the plain version in float32 and in float64.
-    # The random-weight modes (a nonzero output layer, B=64) amplify faster
-    # at steps 5-6 than the trained map (~2.5x a step, the by-step line):
-    # 2e-4 there.  kl (a sum of ~800 log densities) to 2e-5 relative.
+    # The random-weight modes (a nonzero output layer, B=63, ragged)
+    # amplify faster at steps 5-6 than the trained map (~2.5x a step, the
+    # by-step line): 2e-4 there.  kl (a sum of ~800 log densities) to 2e-5
+    # relative.
     with torch.no_grad():
         mean, std = sup_lib.encode(sparams, cfg, flat)
         mean = mean.reshape(B, T, cfg.num_obj, 4)
@@ -935,30 +960,27 @@ def training_slice(card: str, dev, cfg, model) -> dict:
                           generator=gen).to(dev)
         acts = torch.zeros((B, T - 2), dtype=torch.long, device=dev)
         worst = {}
+        trained = model.params["dynamics"]
         for label, c2, dyn, nb, lim in (
-                ("trained, velocity_obs_full_std", cfg,
-                 model.params["dynamics"], B, 1e-4),
-                ("random, velocity_obs_full_std=False",
-                 cfg.with_overrides(velocity_obs_full_std=False), None, 64,
-                 2e-4),
-                ("random, velocity_obs=filtered",
-                 cfg.with_overrides(velocity_obs="filtered"), None, 64,
-                 2e-4)):
+                ("trained, velocity_obs_full_std", cfg, trained, B, 1e-4),
+                ("trained, ragged", cfg, trained, B - 1, 1e-4),
+                ("trained, 16 samples a block", cfg, trained, 2113, 1e-4),
+                *[(f"random, {k}", cfg.with_overrides(**kw), None, 63, 2e-4)
+                  for k, kw in SCAN_MODES.items()]):
             if dyn is None:
                 dyn = dyn_lib.init_params(c2, torch.Generator().manual_seed(8),
                                           dev)
                 dyn["out"][-1]["w"] = 0.05 * torch.randn(
                     dyn["out"][-1]["w"].shape,
                     generator=torch.Generator().manual_seed(9)).to(dev)
-            args = [a[:nb] for a in scan_args]
-            z, zm, kl, _ = fscan.launch_kernel(fr.pack_params(dyn, c2), c2,
-                                            *args, eps[:nb])
-            rz, rzm, rkl, _ = fscan.scan_reference(dyn, c2, *args, acts[:nb],
-                                                   eps[:nb])
+            args = [batch_rows(a, nb) for a in scan_args]
+            e_, a_ = batch_rows(eps, nb), batch_rows(acts, nb)
+            z, zm, kl, _ = fscan.launch_kernel(fscan.prepare_params(dyn, c2),
+                                               c2, *args, e_)
+            rz, rzm, rkl, _ = fscan.scan_reference(dyn, c2, *args, a_, e_)
             d64 = ckpt_lib.params_from_numpy(dyn, dev, torch.float64)
             qz, qzm, qkl, _ = fscan.scan_reference(
-                d64, c2, *[a.double() for a in args], acts[:nb],
-                eps[:nb].double())
+                d64, c2, *[a.double() for a in args], a_, e_.double())
             torch.cuda.synchronize()
             ez = max((z - rz).abs().max().item(), (zm - rzm).abs().max().item())
             ez64 = max((z.double() - qz).abs().max().item(),
@@ -967,7 +989,8 @@ def training_slice(card: str, dev, cfg, model) -> dict:
                         (rzm.double() - qzm).abs().max().item())
             ekl = ((kl - rkl).abs() / rkl.abs().clamp_min(1.0)).max().item()
             by_step = (z - rz).abs().amax(dim=(0, 2, 3))
-            phase("scan", f"{label}, B={nb}: max |kernel - plain| z, z_mean "
+            phase("scan", f"{label}, B={nb} (tile {fscan.tile_for(nb)}): "
+                  f"max |kernel - plain| z, z_mean "
                   f"{ez:.3e} (float64 plain: kernel {ez64:.3e}, float32 "
                   f"plain {own64:.3e}); kl rel {ekl:.2e} (kl mean "
                   f"{rkl.mean().item():.3f}); by step " + " ".join(
@@ -975,8 +998,10 @@ def training_slice(card: str, dev, cfg, model) -> dict:
             check(ez <= lim and ez64 <= lim, f"scan kernel z error ({label})")
             check(ekl <= 2e-5, f"scan kernel kl error ({label})")
             worst[label] = ez
-            note(fscan.job(c2), err=ez)
-    out["scan_err"] = worst["trained, velocity_obs_full_std"]
+            key = fscan.job(c2, "float32", fscan.tile_for(nb))
+            note(key, err=max(ez, LIBS.get(lib_key(key), {}).get("err", 0.0)))
+    out["scan_err"] = max(worst["trained, velocity_obs_full_std"],
+                          worst["trained, ragged"])
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
 
@@ -1186,9 +1211,14 @@ def training_slice(card: str, dev, cfg, model) -> dict:
               f"on {card}")
         out[f"step_{label}"] = (st, wu, fw)
 
-    # each kernel alone at the training shapes vs its plain version
+    # each kernel alone at the training shapes vs its plain version (the
+    # scan's float32 library; its bf16 one in phase (26)), and the scan's
+    # weight packing, which `scan_kernel` does once a call
     with torch.no_grad():
-        packed = fr.pack_params(model.params["dynamics"], cfg)
+        packed = fscan.prepare_params(model.params["dynamics"], cfg)
+        for dt in fr.DTYPES:
+            out[f"pack_ms_{dt}"] = time_cuda(lambda: fscan.prepare_params(
+                model.params["dynamics"], cfg, dt), iters=10, warmup=2)
         prep_o = fspn.prepare(specs.obj, sparams["obj_spn"])
         prep_b = fspn.prepare(specs.bg, sparams["bg_spn"])
         (so, po, xo, wo), (sb, pb, xb, wb) = spn_in["obj"], spn_in["bg"]
@@ -1211,8 +1241,7 @@ def training_slice(card: str, dev, cfg, model) -> dict:
             out[f"{name}_plain_ms"] = time_cuda(p_fn, iters=5, warmup=1)
     macs = macs_per_frame(cfg) * B * (T - 2)
     scan_bytes = 4.0 * (sum(a.numel() for a in scan_args) + eps.numel()
-                        + 2 * eps.numel() + B
-                        + packed.numel())
+                        + 2 * eps.numel() + B) + packed.numel()
     out["scan_bound"] = bound(2.0 * macs, scan_bytes)
     n_obj, n_bg = xo.shape[0], xb.shape[0]
     out["spn_bound"] = bound(
@@ -1229,6 +1258,9 @@ def training_slice(card: str, dev, cfg, model) -> dict:
         phase("timing", f"{name} kernel {out[name + '_ms']:.3f} ms, plain "
               f"{out[name + '_plain_ms']:.3f} ms, bound {ms:.4f} ms "
               f"({by}) on {card}")
+    phase("timing", f"scan weight packing (fused_scan.prepare_params, once "
+          f"a scan_kernel call): float32 {out['pack_ms_float32']:.3f} ms, "
+          f"bfloat16 {out['pack_ms_bfloat16']:.3f} ms on {card}")
     return out
 
 
@@ -1595,8 +1627,8 @@ def hold_scan(name, dyn, cfg, args, acts, eps, lim=1e-4):
     from stove_tpu_torch.ops import fused_scan as fscan
     from stove_tpu_torch.train import checkpoint as ckpt_lib
     dev = eps.device
-    z, zm, kl, rew = fscan.launch_kernel(fr.pack_params(dyn, cfg), cfg, *args,
-                                         eps, acts)
+    z, zm, kl, rew = fscan.launch_kernel(fscan.prepare_params(dyn, cfg), cfg,
+                                         *args, eps, acts)
     rz, rzm, rkl, rrew = fscan.scan_reference(dyn, cfg, *args, acts, eps)
     d64 = ckpt_lib.params_from_numpy(dyn, dev, torch.float64)
     qz, qzm, qkl, qrew = fscan.scan_reference(
@@ -1722,7 +1754,8 @@ def fourth_slice(card: str, dev) -> dict:
     # weights, posterior inputs of rendered avoidance frames and their
     # actions; then the gravity model's window (T2=14, no new code, a
     # longer loop), held as phase (8) and, past its sixth step, by phase
-    # (2)'s float64 criterion (printed in the by-step line)
+    # (2)'s float64 criterion (printed in the by-step line); each again at
+    # B=255, the small tile's last block ragged
     gen = torch.Generator().manual_seed(17)
     a_args, a_acts, a_eps = scan_inputs(amodel, acfg, 256, gen, dev)
     check(a_acts.min().item() >= 0 and len(torch.unique(a_acts)) > 1,
@@ -1734,6 +1767,14 @@ def fourth_slice(card: str, dev) -> dict:
     g_args, g_acts, g_eps = scan_inputs(gmodel, gcfg, 256, gen, dev)
     out["scan_grav_err"], _, _ = hold_scan(
         "scan-act", gmodel.params["dynamics"], gcfg, g_args, g_acts, g_eps)
+    for mdl, c, args, acts, eps, key in (
+            (amodel, acfg, a_args, a_acts, a_eps, "scan_act"),
+            (gmodel, gcfg, g_args, g_acts, g_eps, "scan_grav")):
+        ez, er, _ = hold_scan("scan-act", mdl.params["dynamics"], c,
+                              [a[:255] for a in args], acts[:255], eps[:255])
+        out[f"{key}_err"] = max(out[f"{key}_err"], ez)
+        if c.reward_head:
+            out["scan_act_rew_err"] = max(out["scan_act_rew_err"], er)
 
     # ---- (18) avoid-train: preset=stove_avoidance from scratch at full
     # width (only the corpus cut), 2 warm-up + 3 STOVE steps through the
@@ -2094,7 +2135,7 @@ def fourth_slice(card: str, dev) -> dict:
         B_, T2 = acts.shape
         flops = 2.0 * macs_per_frame(cfg) * B_ * T2
         nbytes = 4.0 * (sum(a.numel() for a in args) + 3 * eps.numel() + B_
-                        + 2 * B_ * T2 + packed.numel())
+                        + 2 * B_ * T2) + packed.numel()
         return bound(flops, nbytes)
 
     timing = {}
@@ -2103,7 +2144,7 @@ def fourth_slice(card: str, dev) -> dict:
                 ("avoid", amodel, acfg, a_args, a_acts, a_eps),
                 ("grav", gmodel, gcfg, g_args, g_acts, g_eps)):
             dyn = mdl.params["dynamics"]
-            packed = fr.pack_params(dyn, c)
+            packed = fscan.prepare_params(dyn, c)
             k_ms = time_cuda(lambda: fscan.launch_kernel(
                 packed, c, *args, eps, acts), iters=20, warmup=2)
             p_ms = time_cuda(lambda: fscan.scan_reference(
@@ -2346,40 +2387,55 @@ def fifth_slice(card: str, dev, model, z_post) -> dict:
         note(fr.job(gcfg, True, "float32", 4), err=implied_open_std(
             "bf16", gdyn, gcfg, rows(g_post, 576), "float32", gmodel.prepared,
             1e-2))
-        for label, mdl, c in (("billiards", model, cfg),
-                              ("avoidance", amodel, acfg),
-                              ("gravity", gmodel, gcfg)):
-            args, acts, eps = scan_inputs(mdl, c, 256, gen, dev)
+        for label, mdl, c, sizes in (("billiards", model, cfg, (256, 255, 2113)),
+                                     ("avoidance", amodel, acfg, (256, 255)),
+                                     ("gravity", gmodel, gcfg, (256, 255))):
+            args256, acts256, eps256 = scan_inputs(mdl, c, 256, gen, dev)
             d_ = mdl.params["dynamics"]
-            k = fscan.launch_kernel(fr.pack_params(d_, c), c, *args, eps, acts,
-                                    "bfloat16")
-            rb = fscan.scan_reference(d_, c, *args, acts, eps,
-                                      dtype="bfloat16")
-            rf = fscan.scan_reference(d_, c, *args, acts, eps)
-            torch.cuda.synchronize()
-            fields = {}
-            for i, what in ((0, "z"), (1, "z_mean")):
-                e, med, mx = hold_bf16(f"bf16 scan {label} {what}", k[i],
-                                       rb[i], rf[i], steps=min(4, acts.shape[1]))
-                fields[what] = (e, med, mx)
-            if c.reward_head:
-                fields["rewards"] = hold_bf16(
-                    f"bf16 scan {label} rewards", k[3][..., None],
-                    rb[3][..., None], rf[3][..., None], **BF16_REWARDS)
-            dk, rk = (k[2] - rb[2]).abs(), (rb[2] - rf[2]).abs()
-            phase("bf16", f"scan {label}: kl |kernel - plain bf16| median "
-                  f"{dk.median().item():.2e} max {dk.max().item():.2e}; "
-                  f"|plain bf16 - f32| median {rk.median().item():.2e} max "
-                  f"{rk.max().item():.2e}")
-            check(dk.median().item() <= 0.1 * rk.median().item(),
-                  f"bf16 scan {label} kl medians")
-            check(dk.max().item() <= BF16_STATES["max_ratio"] * rk.max().item(),
-                  f"bf16 scan {label} kl maximum")
-            note(fscan.job(c, "bfloat16"), err=fields["z"][0],
-                 median_ratio=max(v[1] for v in fields.values()),
-                 max_ratio=max(v[2] for v in fields.values()))
-            out[f"scan_bf16_{label}"] = {w: v[0] for w, v in fields.items()}
-            out[f"scan_inputs_{label}"] = (args, acts, eps)
+            prep = fscan.prepare_params(d_, c, "bfloat16")
+            for nb in sizes:
+                # B=255: the small tile's last block ragged; 2113: 16
+                # samples a block, the last block one sample (the window's
+                # inputs repeated)
+                args = [batch_rows(a, nb) for a in args256]
+                acts, eps = batch_rows(acts256, nb), batch_rows(eps256, nb)
+                k = fscan.launch_kernel(prep, c, *args, eps, acts, "bfloat16")
+                rb = fscan.scan_reference(d_, c, *args, acts, eps,
+                                          dtype="bfloat16")
+                rf = fscan.scan_reference(d_, c, *args, acts, eps)
+                torch.cuda.synchronize()
+                name = f"bf16 scan {label} B={nb}"
+                fields = {}
+                for i, what in ((0, "z"), (1, "z_mean")):
+                    e, med, mx = hold_bf16(f"{name} {what}", k[i], rb[i],
+                                           rf[i], steps=min(4, acts.shape[1]))
+                    fields[what] = (e, med, mx)
+                if c.reward_head:
+                    fields["rewards"] = hold_bf16(
+                        f"{name} rewards", k[3][..., None], rb[3][..., None],
+                        rf[3][..., None], **BF16_REWARDS)
+                dk, rk = (k[2] - rb[2]).abs(), (rb[2] - rf[2]).abs()
+                phase("bf16", f"scan {label} B={nb} (tile "
+                      f"{fscan.tile_for(nb)}): kl |kernel - plain bf16| "
+                      f"median {dk.median().item():.2e} max "
+                      f"{dk.max().item():.2e}; |plain bf16 - f32| median "
+                      f"{rk.median().item():.2e} max {rk.max().item():.2e}")
+                check(dk.median().item() <= 0.1 * rk.median().item(),
+                      f"{name} kl medians")
+                check(dk.max().item()
+                      <= BF16_STATES["max_ratio"] * rk.max().item(),
+                      f"{name} kl maximum")
+                key = fscan.job(c, "bfloat16", fscan.tile_for(nb))
+                was = LIBS.get(lib_key(key), {})
+                note(key, err=max(fields["z"][0], was.get("err", 0.0)),
+                     median_ratio=max([v[1] for v in fields.values()]
+                                      + [was.get("median_ratio", 0.0)]),
+                     max_ratio=max([v[2] for v in fields.values()]
+                                   + [was.get("max_ratio", 0.0)]))
+                if nb == 256:
+                    out[f"scan_bf16_{label}"] = {w: v[0]
+                                                 for w, v in fields.items()}
+            out[f"scan_inputs_{label}"] = (args256, acts256, eps256)
 
     # ---- (25) plan-bf16: mode=mcts of r4a_dense_s2 with
     # mcts_rollout_impl=pallas: leaves valued by the bf16 rollout (the JAX
@@ -2493,39 +2549,50 @@ def fifth_slice(card: str, dev, model, z_post) -> dict:
                       + f"), plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}),"
                       f" kernel at {100 * b_ms / k_ms:.1f}% of it, "
                       f"{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s on {card}")
-        # the velocity-mode and bf16 scan libraries at their training shapes
+        # the bf16 and velocity-mode scan libraries at their training
+        # shapes, the 16-sample tile at B=4096, and the weight packing each
+        # scan_kernel call does
         for label, mdl, c in (("billiards", model, cfg),
                               ("avoidance", amodel, acfg),
                               ("gravity", gmodel, gcfg)):
             args, acts, eps = out.pop(f"scan_inputs_{label}")
             d_ = mdl.params["dynamics"]
-            packed = fr.pack_params(d_, c)
-            variants = [(c, "bfloat16")]
+            preps = {dt: fscan.prepare_params(d_, c, dt) for dt in fr.DTYPES}
+            pack = {dt: time_cuda(lambda: fscan.prepare_params(d_, c, dt),
+                                  iters=10, warmup=2) for dt in fr.DTYPES}
+            phase("timing5", f"scan weight packing {label}: float32 "
+                  f"{pack['float32']:.3f} ms, bfloat16 {pack['bfloat16']:.3f} "
+                  f"ms on {card}")
+            note(fscan.job(c, "float32"), pack_ms=pack["float32"])
+            variants = [(c, "bfloat16", 256)]
             if label == "billiards":
-                variants += [(c.with_overrides(velocity_obs_full_std=False),
-                              "float32"),
-                             (c.with_overrides(velocity_obs="filtered"),
-                              "float32")]
-            for c2, dt in variants:
+                variants += [(c.with_overrides(**kw), "float32", 256)
+                             for kw in SCAN_MODES.values()]
+                variants += [(c, dt, 4096) for dt in fr.DTYPES]
+            for c2, dt, B_ in variants:
+                a_ = [batch_rows(a, B_) for a in args]
+                ac_, e_ = batch_rows(acts, B_), batch_rows(eps, B_)
                 k_ms = time_cuda(lambda: fscan.launch_kernel(
-                    packed, c2, *args, eps, acts, dt), iters=20, warmup=2)
+                    preps[dt], c2, *a_, e_, ac_, dt), iters=20, warmup=2)
                 p_ms = time_cuda(lambda: fscan.scan_reference(
-                    d_, c2, *args, acts, eps, dtype=dt), iters=5)
-                B_, T2 = acts.shape
+                    d_, c2, *a_, ac_, e_, dtype=dt), iters=5)
+                T2 = ac_.shape[1]
                 flops = 2.0 * macs_per_frame(c2) * B_ * T2
-                nbytes = 4.0 * (sum(a.numel() for a in args)
-                                + 3 * eps.numel() + B_ + 2 * B_ * T2
-                                + packed.numel())
-                b_ms, by = bound(flops, nbytes)
-                note(fscan.job(c2, dt), ms=k_ms, plain_ms=p_ms,
-                     bound=(b_ms, by), shape={"model": label, "B": B_,
-                                              "T2": T2})
+                nbytes = 4.0 * (sum(a.numel() for a in a_) + 3 * e_.numel()
+                                + B_ + 2 * B_ * T2) + preps[dt].numel()
+                b_ms, by = rollout_bound(flops, nbytes, dt)
+                f32_ms, _ = bound(flops, nbytes)
+                tile = fscan.tile_for(B_)
+                note(fscan.job(c2, dt, tile), ms=k_ms, plain_ms=p_ms,
+                     bound=(b_ms, by), pack_ms=pack[dt],
+                     shape={"model": label, "B": B_, "T2": T2})
                 timing[(f"scan {label}", B_, T2, False, dt)] = (k_ms, p_ms,
                                                                 b_ms, by)
                 phase("timing5", f"scan {label} {dt} "
-                      f"{fscan.velocity_mode(c2)=} B={B_} T2={T2}: kernel "
-                      f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} "
-                      f"ms ({by}, f32 CUDA-core peak) on {card}")
+                      f"{fscan.velocity_mode(c2)=} B={B_} T2={T2} (tile "
+                      f"{tile}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                      f"bound {b_ms:.4f} ms ({by}; at the f32 CUDA-core peak "
+                      f"{f32_ms:.4f} ms), packing {pack[dt]:.3f} ms on {card}")
     out["timing"] = {" ".join(str(x) for x in k): v
                      for k, v in timing.items()}
     return out

@@ -46,7 +46,7 @@
 //    holds float32 to 1e-4 -- a build-time choice, not a fallback at run
 //    time (PERF.md gives its error and time).
 // 2. Weights packed once (fused_rollout.prepare_params), bf16 in the
-//    order the mma fragments load, f32 row-major for the FMA core, and
+//    order the mma fragments load, f32 row-major for the FMA loop, and
 //    streamed through a two-slot ring in shared memory (16 KB slots; 32 KB
 //    for the float32 library at 16 samples a block) filled by cp.async:
 //    the next chunk is in flight while the current one is used, across
@@ -75,7 +75,6 @@
 // torch.Generator, counter (chunk, step, sample, object), both Box-Muller
 // branches.
 
-#define STOVE_MMA 1
 #include "dyn_core.cuh"
 
 namespace {

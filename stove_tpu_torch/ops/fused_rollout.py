@@ -25,8 +25,8 @@ top of the source for its bounds and design.
   matrices as the library loads them (bf16 in the order the kernel's mma
   fragments load, or f32 row-major), the vectors in f32 (`kernel_layout`);
   `unpack_params` inverts it.  `flat_params` is the flat f32 buffer in
-  `param_layout` order that the scan kernel reads (`pack_params`) and the
-  packing starts from.
+  `param_layout` order that the packing starts from.  The posterior scan
+  kernel (ops/fused_scan.py) reads the same buffer.
 * `launch_kernel` checks device, dtype, shape and contiguity, allocates
   the output and launches on the current stream; `launch_kernel.launches`
   counts its launches.
@@ -89,11 +89,10 @@ def param_layout(cfg: Config, open_head: bool = False
                  ) -> List[Tuple[str, Tuple[int, ...]]]:
     """(name, shape) of each segment of the packed buffer, in order.
 
-    Matches the OFF_* constants of csrc/dyn_core.cuh's FMA core (the scan
-    kernel's flat f32 buffer, `flat_params`), which stop before the
-    open-loop head.  Weights are (in, out): the scan kernel
-    reads W[k, n0:n0+4] as one float4.  An
-    action-conditioned config adds embed[0]'s action rows; a reward head
+    The order of `flat_params`' f32 buffer, which `prepare_params`
+    reorders into the kernels' layout (`kernel_layout`).  Weights are
+    (in, out), as the checkpoint stores them.  An action-conditioned config
+    adds embed[0]'s action rows; a reward head
     adds both heads' first layers side by side as one (2h, 2h) matrix over
     [s ; r], their contact-gap and min-distance rows, their second layers
     and their last columns; `open_head` last, the open-loop std head's
@@ -166,11 +165,71 @@ def flat_params(dyn_params: Dict, cfg: Config) -> torch.Tensor:
     layer is zero-padded to a multiple of 64 columns.  embed[0]'s action
     rows, the reward heads and, when sampled rollouts use it, the open-loop
     std head follow (`param_layout`).  The buffer lives on the weights'
-    device.  `prepare_params` packs the rollout kernel's buffer from it.
+    device.  `prepare_params` packs the kernels' buffer from it.
     """
     check_supported(cfg, dyn_params)
-    return pack_params(dyn_params, kernel_config(cfg, dyn_params),
-                       has_open_head(cfg, dyn_params))
+    open_head = has_open_head(cfg, dyn_params)
+    cfg = kernel_config(cfg, dyn_params)
+    p = dyn_params
+    h, D = cfg.dyn_hidden, cfg.full_state_dim
+    w_rel0, w_rel2, b_rel2 = p["rel"][0]["w"], p["rel"][2]["w"], p["rel"][2]["b"]
+    w_out0 = p["out"][0]["w"]
+    w_o0s, w_o0r = w_out0[:h], w_out0[h:]
+    dp = _dout_padded(cfg)
+    w_o2 = torch.zeros((h, dp), dtype=torch.float32, device=w_out0.device)
+    w_o2[:, :_dout(cfg)] = p["out"][2]["w"]
+    b_o2 = torch.zeros((dp,), dtype=torch.float32, device=w_out0.device)
+    b_o2[:_dout(cfg)] = p["out"][2]["b"]
+    b_ra = torch.zeros((4,), dtype=torch.float32, device=w_out0.device)
+    b_ra[0] = b_rel2[-1]
+    seg = {
+        "w_e0": p["embed"][0]["w"][:D], "b_e0": p["embed"][0]["b"],
+        "w_e1": p["embed"][1]["w"], "b_e1": p["embed"][1]["b"],
+        "w_s0": p["self"][0]["w"], "b_s0": p["self"][0]["b"],
+        "w_s1": p["self"][1]["w"], "b_s1": p["self"][1]["b"],
+        "w_rs": torch.cat([w_rel0[:h], w_rel0[h:]], dim=1),
+        "b_r0": p["rel"][0]["b"],
+        "w_r1": p["rel"][1]["w"], "b_r1": p["rel"][1]["b"],
+        "w_rf": w_rel2[:, :-1], "b_rf": b_rel2[:-1],
+        "w_ra": w_rel2[:, -1], "b_ra": b_ra,
+        "w_o0": torch.cat([w_o0s, w_o0r], dim=0), "b_o0": p["out"][0]["b"],
+        "w_o1": p["out"][1]["w"], "b_o1": p["out"][1]["b"],
+        "w_o2": w_o2, "b_o2": b_o2,
+    }
+    if cfg.action_conditioned:
+        seg["w_e0a"] = p["embed"][0]["w"][D:]
+    if cfg.reward_head:
+        rw, ra = p["reward"], p["reward_att"]
+        b_h2 = torch.zeros((4,), dtype=torch.float32, device=w_out0.device)
+        b_h2[0], b_h2[1] = rw[2]["b"][0], ra[2]["b"][0]
+        seg.update({
+            "w_h0": torch.cat([rw[0]["w"][:2 * h], ra[0]["w"][:2 * h]], 1),
+            "b_h0": torch.cat([rw[0]["b"], ra[0]["b"]]),
+            "w_hg": torch.cat([rw[0]["w"][2 * h], ra[0]["w"][2 * h]]),
+            "w_hd": torch.cat([rw[0]["w"][2 * h + 1], ra[0]["w"][2 * h + 1]]),
+            "w_rw1": rw[1]["w"], "b_rw1": rw[1]["b"],
+            "w_ra1": ra[1]["w"], "b_ra1": ra[1]["b"],
+            "w_h2": torch.cat([rw[2]["w"][:, 0], ra[2]["w"][:, 0]]),
+            "b_h2": b_h2,
+        })
+    if open_head:
+        op0, op1 = p["open"]
+        w_op1 = torch.zeros((h, _open_padded(cfg)), dtype=torch.float32,
+                            device=w_out0.device)
+        w_op1[:, :4 + cfg.cl] = op1["w"]
+        b_op1 = torch.zeros((_open_padded(cfg),), dtype=torch.float32,
+                            device=w_out0.device)
+        b_op1[:4 + cfg.cl] = op1["b"]
+        seg.update({"w_op0": op0["w"], "b_op0": op0["b"], "w_op1": w_op1,
+                    "b_op1": b_op1})
+    parts = []
+    for name, shape in param_layout(cfg, open_head):
+        t = seg[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel "
+                             f"expects {shape}")
+        parts.append(t.reshape(-1).to(torch.float32))
+    return torch.cat(parts).contiguous()
 
 
 def _dp(cfg: Config) -> int:
@@ -179,9 +238,9 @@ def _dp(cfg: Config) -> int:
 
 def kernel_layout(cfg: Config, open_head: bool = False
                   ) -> List[Tuple[str, Tuple[int, ...], bool]]:
-    """(name, shape, is_matrix) of each segment of the rollout kernel's
-    buffer, in order (the O_* / V_* / R_* / P_* offsets of the tensor-core
-    section of csrc/dyn_core.cuh): the core's matrices, then its vectors
+    """(name, shape, is_matrix) of each segment of the kernels' buffer, in
+    order (the O_* / V_* / R_* / P_* offsets of csrc/dyn_core.cuh): the
+    core's matrices, then its vectors
     (and embed[0]'s action rows), then the reward head's matrices and
     vectors, then the open-loop std head's, so a buffer with a head holds
     the buffer without it as its prefix.  Names and shapes are those of
@@ -246,8 +305,9 @@ def fragment_unpack(v: torch.Tensor, K: int, N: int,
 
 def prepare_params(dyn_params: Dict, cfg: Config,
                    dtype: str = "float32") -> torch.Tensor:
-    """The rollout kernel's weight buffer (uint8, on the weights' device)
-    for `dtype`, packed once.
+    """The kernels' weight buffer (uint8, on the weights' device) for
+    `dtype`, packed once: the rollout's, and without the open-loop head the
+    posterior scan's.
 
     Counterpart of `pallas_rollout.prepare_params(..., dtype)`: the
     segments of `flat_params` in `kernel_layout` order, every matrix as the
@@ -301,73 +361,6 @@ def unpack_params(buf: torch.Tensor, cfg: Config, open_head: bool = False,
     if off != buf.numel():
         raise ValueError(f"buffer of {buf.numel()} bytes, layout {off}")
     return out
-
-
-def pack_params(dyn_params: Dict, cfg: Config, open_head: bool = False
-                ) -> torch.Tensor:
-    """The packing of `flat_params` without its support check: the
-    posterior scan kernel (ops/fused_scan.py) reads this buffer without the
-    open-loop head and checks what it supports itself."""
-    p = dyn_params
-    h, D = cfg.dyn_hidden, cfg.full_state_dim
-    w_rel0, w_rel2, b_rel2 = p["rel"][0]["w"], p["rel"][2]["w"], p["rel"][2]["b"]
-    w_out0 = p["out"][0]["w"]
-    w_o0s, w_o0r = w_out0[:h], w_out0[h:]
-    dp = _dout_padded(cfg)
-    w_o2 = torch.zeros((h, dp), dtype=torch.float32, device=w_out0.device)
-    w_o2[:, :_dout(cfg)] = p["out"][2]["w"]
-    b_o2 = torch.zeros((dp,), dtype=torch.float32, device=w_out0.device)
-    b_o2[:_dout(cfg)] = p["out"][2]["b"]
-    b_ra = torch.zeros((4,), dtype=torch.float32, device=w_out0.device)
-    b_ra[0] = b_rel2[-1]
-    seg = {
-        "w_e0": p["embed"][0]["w"][:D], "b_e0": p["embed"][0]["b"],
-        "w_e1": p["embed"][1]["w"], "b_e1": p["embed"][1]["b"],
-        "w_s0": p["self"][0]["w"], "b_s0": p["self"][0]["b"],
-        "w_s1": p["self"][1]["w"], "b_s1": p["self"][1]["b"],
-        "w_rs": torch.cat([w_rel0[:h], w_rel0[h:]], dim=1),
-        "b_r0": p["rel"][0]["b"],
-        "w_r1": p["rel"][1]["w"], "b_r1": p["rel"][1]["b"],
-        "w_rf": w_rel2[:, :-1], "b_rf": b_rel2[:-1],
-        "w_ra": w_rel2[:, -1], "b_ra": b_ra,
-        "w_o0": torch.cat([w_o0s, w_o0r], dim=0), "b_o0": p["out"][0]["b"],
-        "w_o1": p["out"][1]["w"], "b_o1": p["out"][1]["b"],
-        "w_o2": w_o2, "b_o2": b_o2,
-    }
-    if cfg.action_conditioned:
-        seg["w_e0a"] = p["embed"][0]["w"][D:]
-    if cfg.reward_head:
-        rw, ra = p["reward"], p["reward_att"]
-        b_h2 = torch.zeros((4,), dtype=torch.float32, device=w_out0.device)
-        b_h2[0], b_h2[1] = rw[2]["b"][0], ra[2]["b"][0]
-        seg.update({
-            "w_h0": torch.cat([rw[0]["w"][:2 * h], ra[0]["w"][:2 * h]], 1),
-            "b_h0": torch.cat([rw[0]["b"], ra[0]["b"]]),
-            "w_hg": torch.cat([rw[0]["w"][2 * h], ra[0]["w"][2 * h]]),
-            "w_hd": torch.cat([rw[0]["w"][2 * h + 1], ra[0]["w"][2 * h + 1]]),
-            "w_rw1": rw[1]["w"], "b_rw1": rw[1]["b"],
-            "w_ra1": ra[1]["w"], "b_ra1": ra[1]["b"],
-            "w_h2": torch.cat([rw[2]["w"][:, 0], ra[2]["w"][:, 0]]),
-            "b_h2": b_h2,
-        })
-    if open_head:
-        op0, op1 = p["open"]
-        w_op1 = torch.zeros((h, _open_padded(cfg)), dtype=torch.float32,
-                            device=w_out0.device)
-        w_op1[:, :4 + cfg.cl] = op1["w"]
-        b_op1 = torch.zeros((_open_padded(cfg),), dtype=torch.float32,
-                            device=w_out0.device)
-        b_op1[:4 + cfg.cl] = op1["b"]
-        seg.update({"w_op0": op0["w"], "b_op0": op0["b"], "w_op1": w_op1,
-                    "b_op1": b_op1})
-    parts = []
-    for name, shape in param_layout(cfg, open_head):
-        t = seg[name]
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel "
-                             f"expects {shape}")
-        parts.append(t.reshape(-1).to(torch.float32))
-    return torch.cat(parts).contiguous()
 
 
 # --------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 Counterpart of `stove_tpu/ops/pallas_scan.py::scan_fused` and of the
 custom-VJP dispatch `_scan_pallas` in `stove_tpu/models/stove.py`.  The
 kernel (`csrc/scan.cu`) runs the T−2 posterior steps of one window per
-block of TB samples, with the rollout's dynamics core (`csrc/dyn_core.cuh`)
-and the packed weights of `fused_rollout.pack_params`; see the notes at
+block of TB samples on the rollout's dynamics core (`csrc/dyn_core.cuh`:
+bf16 matmuls on the tensor cores, float32 ones on the CUDA cores), with the
+rollout's packed weights (`fused_rollout.prepare_params`); see the notes at
 the top of the source.
 
 * `scan_reference` is the plain version: the recursion as a Python loop
@@ -14,10 +15,11 @@ the top of the source.
   does (`dynamics.apply`'s `bf16`).
 * `launch_kernel` checks its inputs, launches once on the current stream
   and counts its launches (`launch_kernel.launches`); `dtype` picks the
-  library: "float32", or "bfloat16" (`-DSTOVE_BF16=1`: the FMA matmul
-  rounds each operand to bf16 first).
-* `scan_kernel` packs the weights and launches one library, bf16 unless
-  told otherwise.
+  library, and the weight buffer is packed for it: "float32", or
+  "bfloat16" (`-DSTOVE_BF16=1`, mma.sync on bf16 operands); the tile is
+  `tile_for(B)`.
+* `scan_kernel` packs the weights (`prepare_params`) and launches one
+  library, bf16 unless told otherwise.
 * `scan_fused` is the dispatch `scan_impl="pallas"` takes, as
   `_scan_pallas` (stove.py:304-333): the forward in bf16 -- the kernel on
   CUDA tensors (or it raises), the plain bf16 loop on CPU tensors -- and
@@ -40,7 +42,9 @@ from stove_tpu_torch.models.dynamics import LAT, POS, SIZE, VEL
 from stove_tpu_torch.ops import _build, fused_rollout, gaussians
 from stove_tpu_torch.ops._vjp import with_plain_vjp
 
-TILE = 8           # samples per block (STOVE_TB): 32 blocks at B=256
+# samples per block (STOVE_TB): the rollout's rule, 16 or, below 132
+# blocks, 4 -- 64 blocks at the training batch B=256
+tile_for = fused_rollout.tile_for
 
 
 def scan_reference(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
@@ -126,14 +130,16 @@ def velocity_mode(cfg: Config) -> int:
     return 2 if cfg.velocity_obs_full_std else 1
 
 
-def job(cfg: Config, dtype: str = "float32") -> _build.Job:
-    """(source, defines) of the scan library: shapes, the velocity mode,
-    and, as the rollout's (`fused_rollout.job`), the action term for an
+def job(cfg: Config, dtype: str = "float32",
+        tile: int = fused_rollout.SMALL_TILE) -> _build.Job:
+    """(source, defines) of the scan library: shapes, the tile (by default
+    the training batch's, `tile_for(256)`), the velocity mode, and, as the
+    rollout's (`fused_rollout.job`), the action term for an
     action-conditioned config and the reward head when the config has one
     (`fused_rollout.kernel_config` drops it where the params hold none);
     `-DSTOVE_BF16=1` for the bfloat16 library."""
     defines = (f"-DSTOVE_O={cfg.num_obj}", f"-DSTOVE_CL={cfg.cl}",
-               f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={TILE}",
+               f"-DSTOVE_H={cfg.dyn_hidden}", f"-DSTOVE_TB={tile}",
                f"-DSTOVE_VEL_MODE={velocity_mode(cfg)}")
     if cfg.action_conditioned:
         defines += ("-DSTOVE_ACT=1", f"-DSTOVE_NA={cfg.num_actions}")
@@ -144,28 +150,41 @@ def job(cfg: Config, dtype: str = "float32") -> _build.Job:
     return ("scan.cu", defines)
 
 
-def _setup(cfg: Config):
+def _setup(cfg: Config, dtype: str):
     def setup(lib: ctypes.CDLL) -> None:
-        for name in ("stove_scan_param_count", "stove_scan_smem_bytes",
-                     "stove_scan_tile"):
+        for name in ("stove_scan_param_bytes", "stove_scan_smem_bytes",
+                     "stove_scan_tile", "stove_scan_bf16"):
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = []
         lib.stove_scan_launch.restype = ctypes.c_int
         lib.stove_scan_launch.argtypes = (
             [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2
             + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
-        expect = fused_rollout.param_count(cfg)
-        if lib.stove_scan_param_count() != expect:
+        expect = fused_rollout.kernel_bytes(cfg, False, dtype)
+        if lib.stove_scan_param_bytes() != expect:
             raise RuntimeError(
-                f"scan kernel packs {lib.stove_scan_param_count()} params, "
-                f"param_layout {expect}: csrc/dyn_core.cuh and "
-                f"fused_rollout.param_layout disagree")
+                f"scan kernel packs {lib.stove_scan_param_bytes()} bytes, "
+                f"kernel_layout {expect}: csrc/dyn_core.cuh and "
+                f"fused_rollout.kernel_layout disagree")
+        if lib.stove_scan_bf16() != (dtype == "bfloat16"):
+            raise RuntimeError("scan library of the wrong precision")
     return setup
 
 
-def load(cfg: Config, dtype: str = "float32") -> ctypes.CDLL:
-    src, defines = job(cfg, dtype)
-    return _build.load(src, defines, _setup(cfg))
+def load(cfg: Config, dtype: str = "float32",
+         tile: int = fused_rollout.SMALL_TILE) -> ctypes.CDLL:
+    src, defines = job(cfg, dtype, tile)
+    return _build.load(src, defines, _setup(cfg, dtype))
+
+
+def prepare_params(dyn_params: Dict, cfg: Config,
+                   dtype: str = "float32") -> torch.Tensor:
+    """The scan's weight buffer for `dtype`: the rollout kernel's
+    (`fused_rollout.prepare_params`) without the open-loop std head, which
+    the scan does not run (a buffer with it holds this one as its
+    prefix)."""
+    return fused_rollout.prepare_params(
+        {k: v for k, v in dyn_params.items() if k != "open"}, cfg, dtype)
 
 
 def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
@@ -173,16 +192,22 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """One launch → (z, z_mean (B, T2, O, D), kl (B,), rewards (B, T2));
-    CUDA f32 tensors only, `prepared` the flat buffer of
-    `fused_rollout.pack_params`; `dtype` the library's matmul precision.
+    CUDA f32 tensors only, `prepared` the uint8 buffer of `prepare_params`
+    for `dtype`, the library's matmul precision; the tile is `tile_for(B)`.
     An action-conditioned config reads `actions` (B, T2) integers (zeros
     when None, as `dynamics.apply` does); the rewards are zeros without a
     reward head.  Counts its launches in `launch_kernel.launches` and, by
-    library, `launch_kernel.by_library`."""
+    library (its defines, as `job` gives them),
+    `launch_kernel.by_library`."""
+    dtype = fused_rollout.check_dtype(dtype)
     ins = [z1, carry_m, carry_s, sup_mean, sup_std, eps]
     _build.check_device(prepared, *ins)
-    if any(x.dtype != torch.float32 for x in [prepared] + ins):
+    if any(x.dtype != torch.float32 for x in ins):
         raise TypeError("the scan kernel takes float32 tensors")
+    if prepared.dtype != torch.uint8 or prepared.dim() != 1 \
+            or not prepared.is_contiguous():
+        raise TypeError("the scan kernel takes the flat uint8 buffer of "
+                        "prepare_params")
     B, O, D = z1.shape
     T2 = sup_mean.shape[1]
     want = {"z1": (B, O, D), "carry_m": (B, O, 2), "carry_s": (B, O, 2),
@@ -195,17 +220,21 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
     if O != cfg.num_obj or D != cfg.full_state_dim:
         raise ValueError(f"z1 shape {tuple(z1.shape)} does not match the "
                          f"config (O={cfg.num_obj}, D={cfg.full_state_dim})")
+    if prepared.numel() != fused_rollout.kernel_bytes(cfg, False, dtype):
+        raise ValueError(f"packed dynamics params have the wrong size for "
+                         f"this config and dtype {dtype}")
     ins = [x.contiguous() for x in ins]
     acts = fused_rollout.int32_actions(cfg, actions, B, T2, z1)
     z = torch.empty((B, T2, O, D), dtype=torch.float32, device=z1.device)
     zm = torch.empty_like(z)
-    kl = torch.zeros((B,), dtype=torch.float32, device=z1.device)
-    rewards = torch.zeros((B, T2), dtype=torch.float32, device=z1.device)
     if B == 0 or T2 == 0:
-        return z, zm, kl, rewards
-    lib = load(cfg, dtype)
-    if prepared.numel() != lib.stove_scan_param_count():
-        raise ValueError("packed dynamics params have the wrong size")
+        return z, zm, z1.new_zeros((B,)), z1.new_zeros((B, T2))
+    # the kernel writes every kl and, with the head, every reward
+    kl = torch.empty((B,), dtype=torch.float32, device=z1.device)
+    rewards = (torch.empty if cfg.reward_head else torch.zeros)(
+        (B, T2), dtype=torch.float32, device=z1.device)
+    tile = tile_for(B)
+    lib = load(cfg, dtype, tile)
     with torch.cuda.device(z1.device):
         err = lib.stove_scan_launch(
             *[x.data_ptr() for x in ins],
@@ -217,7 +246,7 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
     if err != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
     launch_kernel.launches += 1
-    key = " ".join(job(cfg, dtype)[1])
+    key = " ".join(job(cfg, dtype, tile)[1])
     launch_kernel.by_library[key] = launch_kernel.by_library.get(key, 0) + 1
     return z, zm, kl, rewards
 
@@ -229,11 +258,11 @@ launch_kernel.by_library = {}     # launches by library (its defines)
 def scan_kernel(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
                 sup_mean, sup_std, actions, eps, dtype: str = "bfloat16"):
     """The kernel with `scan_reference`'s arguments and outputs: the
-    weights packed (`fused_rollout.pack_params`) and one launch of the
-    `dtype` library; CUDA tensors only."""
+    weights packed on their device (`prepare_params`, once a call) and one
+    launch of the `dtype` library; CUDA tensors only."""
     kcfg = fused_rollout.kernel_config(cfg, dyn_params)
-    packed = fused_rollout.pack_params(dyn_params, kcfg)
-    return launch_kernel(packed, kcfg, z1, carry_m, carry_s, sup_mean,
+    prepared = prepare_params(dyn_params, cfg, dtype)
+    return launch_kernel(prepared, kcfg, z1, carry_m, carry_s, sup_mean,
                          sup_std, eps, actions, dtype)
 
 

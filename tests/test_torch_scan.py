@@ -17,6 +17,8 @@ around the plain loop) are the float32 plain loop's VJP at the cotangents
 of the bfloat16 forward, bit for bit, as `_scan_pallas_bwd`.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from stove_tpu.ops import pallas_rollout as jpr
 from stove_tpu.ops import pallas_scan as jps
 from stove_tpu_torch import tree
 from stove_tpu_torch.config import Config as TConfig
+from stove_tpu_torch.models import dynamics as tdyn
 from stove_tpu_torch.models import stove as tstove
 from stove_tpu_torch.ops import fused_rollout as fr
 from stove_tpu_torch.ops import fused_scan
@@ -194,7 +197,9 @@ def test_scan_kernel_rejects_what_it_does_not_implement():
 def test_scan_jobs_by_variant():
     """One library per variant: the action term with the action count, the
     reward head on its own (the reference runs it without actions too, and
-    kernel_config drops it where the params hold none)."""
+    kernel_config drops it where the params hold none), each at the tile
+    `tile_for` picks from B; every variant builds on the one dynamics core,
+    whose bf16 matmul is mma.sync m16n8k16, with no switch to another."""
     base = TConfig(reward_head=False)
     jobs = {
         "plain": fused_scan.job(base),
@@ -212,3 +217,67 @@ def test_scan_jobs_by_variant():
     assert all(v[0] == "scan.cu" for v in jobs.values())
     no_head = fr.kernel_config(TConfig(reward_head=True), {})
     assert fused_scan.job(no_head) == jobs["plain"]
+    # the tile: the training batch's by default, tile_for(B) at launch
+    tile = fused_scan.tile_for(256)
+    assert tile == fr.SMALL_TILE
+    for cfg in [base, base.with_overrides(reward_head=True),
+                ckpt.load_config("ckpts/r4a_dense_s2")] + [
+            base.with_overrides(**kw) for kw in MODES.values()]:
+        for dtype in fr.DTYPES:
+            for B, want in ((256, tile), (16 * 131, tile), (16 * 132, 16),
+                            (16384, 16)):
+                d = fused_scan.job(cfg, dtype, fused_scan.tile_for(B))[1]
+                assert f"-DSTOVE_TB={want}" in d
+                assert ("-DSTOVE_BF16=1" in d) == (dtype == "bfloat16")
+            assert f"-DSTOVE_TB={tile}" in fused_scan.job(cfg, dtype)[1]
+    csrc = Path(fused_scan.__file__).resolve().parents[1] / "csrc"
+    assert '#include "dyn_core.cuh"' in (csrc / "scan.cu").read_text()
+    assert "mma.sync.aligned.m16n8k16" in (csrc / "dyn_core.cuh").read_text()
+    assert not any("STOVE_MMA" in f.read_text() for f in csrc.iterdir())
+
+
+SCAN_VARIANTS = {
+    "billiards": ("ckpts/r4rp_bill_s32", {}),
+    "t_frame_std": ("ckpts/r4rp_bill_s32", dict(velocity_obs_full_std=False)),
+    "filtered": ("ckpts/r4rp_bill_s32", dict(velocity_obs="filtered")),
+    "no_velocity_posterior": ("ckpts/r4rp_bill_s32",
+                              dict(velocity_posterior=False)),
+    "actions_reward_head": ("ckpts/r4a_dense_s2", {}),
+    "gravity_open_head": ("ckpts/r4rp_grav_s32", {}),
+}
+
+
+@pytest.mark.parametrize("dtype", fr.DTYPES)
+@pytest.mark.parametrize("variant", list(SCAN_VARIANTS))
+def test_scan_weight_buffer_is_the_rollouts(variant, dtype):
+    """The scan's weight buffer (`fused_scan.prepare_params`, what
+    `scan_kernel` packs once a call) is the rollout kernel's
+    (`fused_rollout.prepare_params`) without the open-loop head, for every
+    variant and precision: the size the library reads, the prefix of the
+    buffer with the head, and it unpacks to the checkpoint's weights (the
+    matrices and action rows rounded to bf16 in the bf16 buffer)."""
+    run, kw = SCAN_VARIANTS[variant]
+    cfg = ckpt.load_config(run).with_overrides(**kw)
+    dyn = ckpt.load_params(run, device="cpu")["dynamics"]
+    kcfg = fr.kernel_config(cfg, dyn)
+    buf = fused_scan.prepare_params(dyn, cfg, dtype)
+    assert buf.dtype == torch.uint8
+    assert buf.numel() == fr.kernel_bytes(kcfg, False, dtype)
+    no_open = {k: v for k, v in dyn.items() if k != "open"}
+    assert torch.equal(buf, fr.prepare_params(no_open, cfg, dtype))
+    full = fr.prepare_params(dyn, cfg, dtype)
+    assert torch.equal(full[:buf.numel()], buf)
+    assert (full.numel() > buf.numel()) == (variant == "gravity_open_head")
+    got = fr.unpack_params(buf, kcfg, False, dtype)
+    flat, off = fr.flat_params(no_open, cfg), 0
+    mats = {n for n, _, m in fr.kernel_layout(kcfg) if m}
+    for name, shape in fr.param_layout(kcfg):
+        want = flat[off:off + int(np.prod(shape))].reshape(shape)
+        off += want.numel()
+        if dtype == "bfloat16" and (name in mats or name == "w_e0a"):
+            want = tdyn.bf16_round(want)
+        g = got[name][:shape[0]] if name == "w_e0" else got[name]
+        assert torch.equal(g, want), name
+    assert off == flat.numel() == fr.param_count(kcfg)
+    assert ("w_h0" in got) == bool(kcfg.reward_head)
+    assert ("w_e0a" in got) == bool(kcfg.action_conditioned)

@@ -11,7 +11,8 @@ version evaluated in float64 on the trained model's inputs; the
 tolerances are chip_smoke.py's (phases 6-8).  The scan's float32 library is
 held there (its dispatch's forward set to float32); its bfloat16 library,
 the dispatch's forward, against the plain loop at bf16 by
-bf16_parity.hold_bf16.
+bf16_parity.hold_bf16.  Both scan libraries run on the rollout's
+tensor-core dynamics core, at the tile `fused_scan.tile_for` picks.
 """
 
 import pytest
@@ -50,7 +51,8 @@ def test_wrappers_reject_cpu_tensors(cpu_model):
                            torch.rand(2, 3, 4))
     z1 = torch.zeros(2, 3, cfg.full_state_dim)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fscan.launch_kernel(fr.pack_params(cpu_model.params["dynamics"], cfg),
+        fscan.launch_kernel(fscan.prepare_params(cpu_model.params["dynamics"],
+                                                 cfg),
                             cfg, z1, z1[..., :2], z1[..., :2],
                             torch.zeros(2, 1, 3, 4), torch.ones(2, 1, 3, 4),
                             torch.zeros(2, 1, 3, cfg.full_state_dim))
@@ -83,7 +85,7 @@ def test_build_names_libraries_by_content(cpu_model):
             flik.job(cfg, specs), fr.job(cfg)]
     names = {_build.library_path(*j).name for j in jobs}
     assert len(names) == len(jobs)
-    assert "-DSTOVE_TB=8" in fscan.job(cfg)[1]
+    assert f"-DSTOVE_TB={fscan.tile_for(cfg.batch_size)}" in fscan.job(cfg)[1]
     assert "-DSTOVE_VEL_MODE=2" in fscan.job(cfg)[1]
     assert "-DBG_V=1024" in flik.job(cfg, specs)[1]
 
@@ -186,15 +188,24 @@ def test_scan_kernel_matches_float64_plain(card, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 7, 13])
+@pytest.mark.parametrize("B", [1, 3, 255, 257, 2113])
 def test_kernels_on_ragged_batches(card, B):
-    """Batches that do not fill the last block (4 warps; TB=8 samples),
-    and the likelihood without the overlap correction (the scan's float32
-    library)."""
+    """Batches that do not fill the last block -- the SPN's and likelihood's
+    4 warps, the scan's small tile (B < 2112) and its 16-sample tile (2113)
+    -- and the likelihood without the overlap correction (the scan's
+    float32 library).  The fixture's 256 frames repeat past B=256.  On
+    these random states the trained map amplifies float32 rounding over
+    the 6 steps: beyond a dozen samples the plain float32 loop's own
+    distance from float64 passes 1e-4 (tools/scan_probe.py), so the scan
+    is held, as chip_smoke.py phase (2) holds long rollouts, to 1e-4 or
+    twice that distance where it is larger (kl: 2e-5 relative or twice the
+    plain loop's); phases (8) and (17) hold the posterior's own inputs at
+    B=255 and 2113 to 1e-4."""
     model, frames, boxes, gen = card
     cfg, specs, p = model.cfg, model.specs.supair, model.params["supair"]
-    flat = frames.reshape(-1, 32, 32)[:B].contiguous()
-    bx = boxes[:B].contiguous()
+    reps = -(-B // boxes.shape[0])
+    flat = frames.reshape(-1, 32, 32).repeat(reps, 1, 1)[:B].contiguous()
+    bx = boxes.repeat(reps, 1, 1)[:B].contiguous()
     with torch.no_grad():
         for c in (cfg, cfg.with_overrides(overlap_correction=False)):
             got = flik.likelihood_fused(c, specs, p, flat, bx)
@@ -223,9 +234,20 @@ def test_kernels_on_ragged_batches(card, B):
         ref = fscan.scan_reference(_f64(model.params["dynamics"]), cfg,
                                    *[a.double() for a in args], acts,
                                    eps.double())
-    assert (got[0].double() - ref[0]).abs().max().item() <= 1e-4
-    assert ((got[2].double() - ref[2]).abs()
-            / ref[2].abs().clamp_min(1.0)).max().item() <= 2e-5
+        plain = fscan.scan_reference(model.params["dynamics"], cfg, *args,
+                                     acts, eps)
+
+    def z_err(x):
+        return (x[0].double() - ref[0]).abs().max().item()
+
+    def kl_err(x):
+        return ((x[2].double() - ref[2]).abs()
+                / ref[2].abs().clamp_min(1.0)).max().item()
+
+    assert z_err(got) <= max(1e-4, 2 * z_err(plain)), (z_err(got),
+                                                      z_err(plain))
+    assert kl_err(got) <= max(2e-5, 2 * kl_err(plain)), (kl_err(got),
+                                                        kl_err(plain))
 
 
 @pytest.mark.cuda
