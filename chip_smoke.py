@@ -48,9 +48,10 @@ phase, with the seconds since start:
                   bf16 library (the TPU kernel's perf path) at B=16384
   (6) spn         SPN kernel vs plain on one training step's object patches
                   (6144, 100) and frames (2048, 1024), trained weights and
-                  region graphs: |err| <= 1e-5 * max(|log p|, 100)
+                  region graphs: |err| <= 1e-5 * max(|log p|, 100); the
+                  packing kernel vs its plain version, 1e-6 relative
   (7) likelihood  likelihood kernel vs plain on 2048 rendered frames with
-                  posterior boxes, the same limit
+                  posterior boxes, the same limits
   (8) scan        scan kernel (float32 library) vs plain at B=256, T2=6,
                   trained weights, pre-drawn eps, and at B=255 (the small
                   tile's last block ragged) and B=2113 (16 samples a block):
@@ -74,7 +75,9 @@ phase, with the seconds since start:
   (11) timing     STOVE and warm-up step, kernel vs plain path (host clock,
                   synchronised), and each kernel vs its plain version at the
                   training shapes (CUDA events), beside its bound; the
-                  scan's weight packing, once a call
+                  scan's weight packing, and the SPNs' and the
+                  likelihood's packing kernels (once a call) vs their plain
+                  version
   (12) act-mean   action-conditioned kernel (actions, reward head) vs plain
                   mean rollout, r4a_dense_s2 weights, z0 from the posterior
                   of rendered avoidance frames, random actions.  At B=360
@@ -505,16 +508,6 @@ def main() -> int:
     note(fr.job(acfg, False, "float32", 4), err=act["entry"]["max_abs_err"],
          err_rewards=act["entry"]["max_abs_err_rewards"])
     tr = training_slice(card, dev, cfg, model)
-    note(fspn.job(sspecs.obj), err=tr["spn_err"])
-    note(fspn.job(sspecs.bg), err=tr["spn_err"])
-    note(flik.job(cfg, sspecs), err=tr["lik_err"], ms=tr["likelihood_ms"],
-         plain_ms=tr["likelihood_plain_ms"], bound=tr["lik_bound"],
-         shape={"frames": 2048, "objects": 3})
-    for spec in (sspecs.obj, sspecs.bg):
-        note(fspn.job(spec), ms=tr["spn_ms"], plain_ms=tr["spn_plain_ms"],
-             bound=tr["spn_bound"], shape={"obj": [6144, 100],
-                                           "bg": [2048, 1024],
-                                           "timed": "obj and bg together"})
     note(fscan.job(cfg), ms=tr["scan_ms"], plain_ms=tr["scan_plain_ms"],
          bound=tr["scan_bound"], shape={"model": "billiards", "B": 256,
                                         "T2": 6})
@@ -547,6 +540,9 @@ def main() -> int:
                         "stove_tpu/ops/pallas_spn.py:204"),
              "likelihood.cu": ("likelihood_fused",
                                "stove_tpu/ops/pallas_likelihood.py:233")}
+    packs = {"spn.cu": ("spn_pack", "stove_tpu/ops/pallas_spn.py:39"),
+             "likelihood.cu": ("likelihood_pack",
+                               "stove_tpu/ops/pallas_likelihood.py:176")}
     kernels = []
     for (src, defines) in jobs:
         key = lib_key((src, defines))
@@ -557,10 +553,7 @@ def main() -> int:
             act_ = "-DSTOVE_ACT=1" in d
             name = "rollout_act" if act_ else "rollout_states"
             rep += "484" if act_ else "433"
-        if src in ("spn.cu", "likelihood.cu"):
-            launches = MAIN_PATH.get(src, 0) // (2 if src == "spn.cu" else 1)
-        else:
-            launches = MAIN_PATH.get(key, 0)
+        launches = MAIN_PATH.get(key, 0)
         check("ms" in f and "err" in f, f"library {key} measured")
         b_ms, by = f["bound"]
         kernels.append({
@@ -572,7 +565,22 @@ def main() -> int:
             "ptxas": f.get("ptxas"), "smem_bytes": f.get("smem_bytes"),
             **{k: v for k, v in f.items()
                if k not in ("err", "ms", "plain_ms", "bound", "shape",
-                            "ptxas", "smem_bytes")}})
+                            "ptxas", "smem_bytes", "pack")}})
+        if src in packs:
+            # the library's packing kernel (`prepare`), once a call
+            pk = f.get("pack", {})
+            check({"err", "ms", "plain_ms", "bound"} <= set(pk),
+                  f"packing kernel of {key} measured")
+            b_ms, by = pk["bound"]
+            kernels.append({
+                "name": f"{packs[src][0]}[{d}]", "route": "cuda",
+                "source": f"stove_tpu_torch/csrc/{src}",
+                "replaces": packs[src][1],
+                "launches": MAIN_PATH.get(key + " pack", 0),
+                "max_abs_err": pk["err"], "ms": pk["ms"],
+                "plain_ms": pk["plain_ms"], "bound_ms": b_ms,
+                "bound_by": by, "library_ms": None,
+                "rel_err": pk["rel_err"]})
     on_path = [k for k in kernels if k["launches"] > 0]
     phase("kernels", f"{len(kernels)} libraries, {len(on_path)} launched on "
           f"the main paths: " + ", ".join(
@@ -581,7 +589,11 @@ def main() -> int:
         fr.job(cfg, False, "float32", 4), fr.job(acfg, False, "float32", 4),
         fr.job(acfg, False, "bfloat16", 4), fr.job(gcfg, True, "float32", 4),
         fscan.job(cfg, "bfloat16"), fscan.job(acfg, "bfloat16"),
-        fscan.job(gcfg, "bfloat16"), fr.job(cfg, False, "bfloat16", 16))),
+        fscan.job(gcfg, "bfloat16"), fr.job(cfg, False, "bfloat16", 16),
+        fspn.job(sspecs.obj), fspn.job(sspecs.bg), flik.job(cfg, sspecs)))
+        and all(MAIN_PATH.get(lib_key(j) + " pack", 0) > 0 for j in (
+            fspn.job(sspecs.obj), fspn.job(sspecs.bg),
+            flik.job(cfg, sspecs))),
         "every path launched its libraries")
     print(json.dumps({"kernels": kernels, "train_step_ms": {
         k: tr[f"step_{k}"] for k in ("kernels", "plain")},
@@ -679,7 +691,8 @@ def note(job, **fields) -> None:
 
 
 def library_counts() -> dict:
-    """The rollout and scan wrappers' launch counts by library."""
+    """Every wrapper's launch counts by library; the SPN and likelihood
+    libraries' packing kernels under the library's key + " pack"."""
     from stove_tpu_torch.ops import fused_likelihood as flik
     from stove_tpu_torch.ops import fused_rollout as fr
     from stove_tpu_torch.ops import fused_scan as fscan
@@ -687,8 +700,14 @@ def library_counts() -> dict:
     out = {f"rollout.cu {k}": v for k, v in fr.launch_kernel.by_library.items()}
     out.update({f"scan.cu {k}": v
                 for k, v in fscan.launch_kernel.by_library.items()})
-    out["spn.cu"] = fspn.launch_kernel.launches
-    out["likelihood.cu"] = flik.launch_kernel.launches
+    out.update({f"spn.cu {k}": v
+                for k, v in fspn.launch_kernel.by_library.items()})
+    out.update({f"likelihood.cu {k}": v
+                for k, v in flik.launch_kernel.by_library.items()})
+    out.update({f"spn.cu {k} pack": v
+                for k, v in fspn.prepare.by_library.items()})
+    out.update({f"likelihood.cu {k} pack": v
+                for k, v in flik.prepare.by_library.items()})
     return out
 
 
@@ -782,13 +801,14 @@ def rollout_bound(flops: float, nbytes: float, dtype: str):
 
 
 def spn_flops(spec) -> float:
-    """Operations of one sample's SPN as the kernel does them: 8 per leaf
-    term (sub, div, mul, add, mul, sub, mul, add); per level and (r, p):
-    2(c-1) max, 2c sub+exp, then per sum node c(2c) multiply-adds and c
-    more, log and add; root: 4 per term."""
+    """Operations one sample's SPN needs: 6 per leaf term (with 1/sd and
+    -log sd - log(2 pi)/2 per leaf, which depend on the parameters only:
+    sub, mul, then two multiply-adds, c - t*t and the weighted sum); per
+    level and (r, p): 2(c-1) max, 2c sub+exp, then per sum node c(2c)
+    multiply-adds and c more, log and add; root: 4 per term."""
     R, V, I, S, D = (spec.num_reps, spec.num_vars, spec.num_leaves,
                      spec.num_sums, spec.depth)
-    ops, c = 8.0 * R * V * I, I
+    ops, c = 6.0 * R * V * I, I
     for d in range(D - 1, -1, -1):
         ops += R * 2 ** d * (2 * (c - 1) + 4 * c + S * (2 * c * c + 2 * c + 2))
         c = S
@@ -806,14 +826,59 @@ def spn_param_bytes(spec) -> float:
     return 4.0 * n
 
 
+def lik_bound(cfg, specs, n: int):
+    """The likelihood kernel's bound on n frames: its operations, or its
+    bytes (frames, boxes and the log-densities, both SPNs' parameters)."""
+    V = cfg.img_size ** 2
+    return bound(n * lik_flops(cfg, specs),
+                 4.0 * n * (V + 4 * cfg.num_obj + 1)
+                 + spn_param_bytes(specs.obj) + spn_param_bytes(specs.bg))
+
+
+def pack_err(got, ref, leaf: int):
+    """The packing kernel's buffer against `fused_spn.pack_reference`'s:
+    (largest |got - ref|, largest |got - ref| / max(|ref|, 1)) over the
+    float entries; both inf unless the variables' bits (every fourth leaf
+    entry) are equal."""
+    import torch
+    bits = torch.equal(got[3:leaf:4].view(torch.int32),
+                       ref[3:leaf:4].view(torch.int32))
+    mask = torch.ones_like(ref, dtype=torch.bool)
+    mask[3:leaf:4] = False
+    diff = (got - ref).abs()[mask]
+    rel = (diff / ref.abs()[mask].clamp_min(1.0)).max().item()
+    if not bits:
+        return float("inf"), float("inf")
+    return diff.max().item(), rel
+
+
+def pack_bound(specs):
+    """The packing kernel's bound for the SPNs `specs`: it reads mu, raw
+    std (R, V, I), the permutations (R, V) and the logits once and writes
+    the packed buffer once; 9 operations a leaf (sd from the raw std, 1/sd,
+    log sd) and 5 a weight (softmax: max, sub, exp, sum, divide)."""
+    from stove_tpu_torch.ops import fused_spn as fspn
+    flops = nbytes = 0.0
+    for spec in specs:
+        R, V, I = spec.num_reps, spec.num_vars, spec.num_leaves
+        params = spn_param_bytes(spec) / 4.0 - 3 * R * V * I  # the weights
+        flops += 9.0 * R * V * I + 5.0 * params
+        nbytes += 4.0 * (2 * R * V * I + R * V + params
+                         + fspn.layout(spec)["floats"])
+    return bound(flops, nbytes)
+
+
 def lik_flops(cfg, specs) -> float:
-    """Operations per frame: background weights (O edge pairs of ~12 ops
-    and a max per pixel), per object P² bilinear samples (~20 ops) and
-    claim weights (o edge pairs), the object SPN O times and the
-    background SPN once."""
-    O, P, V = cfg.num_obj, cfg.patch_size, cfg.img_size ** 2
-    claims = sum(o for o in range(O)) * P * P * 26.0
-    return (V * O * 26.0 + O * P * P * 20.0 + claims
+    """Operations per frame.  The box edges are separable: the background
+    weights need O (H + W) edges (~12 ops each: sub, abs, sub, mul, divide,
+    a sigmoid) and a mul and a max per pixel and object; each object's
+    claim weights 2P edges per earlier object and a mul and a max per
+    patch pixel; then per object P² bilinear samples (~20 ops), the object
+    SPN O times and the background SPN once."""
+    O, P, H = cfg.num_obj, cfg.patch_size, cfg.img_size
+    pairs = sum(o for o in range(O))
+    return (O * 2 * H * 12.0 + H * H * O * 2.0
+            + pairs * (2 * P * 12.0 + P * P * 2.0) + O * P * P * 20.0
             + O * spn_flops(specs.obj) + spn_flops(specs.bg))
 
 
@@ -890,7 +955,9 @@ def training_slice(card: str, dev, cfg, model) -> dict:
     # ---- (6) spn: the kernel vs the plain version on the patches and
     # frames of one training step.  Each log-density is a sum of 10^2-10^3
     # leaf terms of size ~1, so float32 rounding scales with that sum: the
-    # limit is |err| <= 1e-5 * max(|log p|, 100).
+    # limit is |err| <= 1e-5 * max(|log p|, 100).  The packing kernel
+    # (fused_spn.prepare) against its plain version (pack_reference): 1e-6
+    # relative to max(|value|, 1), the variables' bits equal.
     with torch.no_grad():
         patches = glimpse.extract_glimpses(flat, boxes, cfg.patch_size)
         pw, bgv = flik.patch_weights(cfg, boxes)
@@ -904,37 +971,57 @@ def training_slice(card: str, dev, cfg, model) -> dict:
                    bgv.reshape(B * T, -1).contiguous())}
         spn_err = 0.0
         for name, (spec, prm, x, w) in spn_in.items():
-            got = fspn.launch_kernel(spec, fspn.prepare(spec, prm), x, w)
+            packed = fspn.prepare(spec, prm)
+            pe, pr = pack_err(packed, fspn.pack_reference(spec, prm),
+                              fspn.layout(spec)["leaf"])
+            got = fspn.launch_kernel(spec, packed, x, w)
             ref = spn_lib.spn_log_prob(spec, prm, x, w)
             ref64 = spn_lib.spn_log_prob(
                 spec, {k: v.double() for k, v in prm.items()}, x.double(),
                 w.double())
             torch.cuda.synchronize()
             e32, e64 = rel_err(got, ref, 100.0), rel_err(got, ref64, 100.0)
-            spn_err = max(spn_err, (got - ref).abs().max().item())
+            err = (got - ref).abs().max().item()
+            spn_err = max(spn_err, err)
             phase("spn", f"{name} SPN x {tuple(x.shape)}: max |kernel - "
-                  f"plain| {(got - ref).abs().max().item():.3e} (rel "
-                  f"{e32:.2e}), vs float64 plain rel {e64:.2e}, float32 "
-                  f"plain vs float64 rel {rel_err(ref, ref64, 100.0):.2e}; "
-                  f"log p in [{ref.min().item():.1f}, {ref.max().item():.1f}]")
+                  f"plain| {err:.3e} (rel {e32:.2e}), vs float64 plain rel "
+                  f"{e64:.2e}, float32 plain vs float64 rel "
+                  f"{rel_err(ref, ref64, 100.0):.2e}; log p in "
+                  f"[{ref.min().item():.1f}, {ref.max().item():.1f}]; "
+                  f"packing kernel vs plain {pe:.2e} (rel {pr:.2e})")
             check(e32 <= 1e-5 and e64 <= 1e-5, f"{name} SPN kernel error")
+            check(pr <= 1e-6, f"{name} SPN packing kernel error")
+            note(fspn.job(spec), err=err,
+                 pack={"err": pe, "rel_err": pr})
     out["spn_err"] = spn_err
 
     # ---- (7) likelihood: the kernel vs the plain version on 2048 rendered
-    # frames with their posterior boxes; limit as in (6)
+    # frames with their posterior boxes; limits as in (6), the packing of
+    # both SPNs in one launch (fused_likelihood.prepare) against
+    # pack_reference
     with torch.no_grad():
-        got = flik.launch_kernel(cfg, specs,
-                                 fspn.prepare(specs.obj, sparams["obj_spn"]),
-                                 fspn.prepare(specs.bg, sparams["bg_spn"]),
-                                 flat, boxes)
+        packed = flik.prepare(cfg, specs, sparams)
+        pes = [pack_err(p_, fspn.pack_reference(s_, sparams[k]),
+                        fspn.layout(s_)["leaf"]) for p_, s_, k in
+               zip(packed, (specs.obj, specs.bg), ("obj_spn", "bg_spn"))]
+        pe, pr = max(e[0] for e in pes), max(e[1] for e in pes)
+        got = flik.launch_kernel(cfg, specs, packed, flat, boxes)
         ref = flik.likelihood_reference(cfg, specs, sparams, flat, boxes)
+        ref64 = flik.likelihood_reference(
+            cfg, specs, tree.map_leaves(lambda v: v.double(), sparams),
+            flat.double(), boxes.double())
         torch.cuda.synchronize()
-        e32 = rel_err(got, ref, 100.0)
+        e32, e64 = rel_err(got, ref, 100.0), rel_err(got, ref64, 100.0)
         out["lik_err"] = (got - ref).abs().max().item()
         phase("likelihood", f"{B * T} frames: max |kernel - plain| "
-              f"{out['lik_err']:.3e} (rel {e32:.2e}); log p in "
-              f"[{ref.min().item():.1f}, {ref.max().item():.1f}]")
-        check(e32 <= 1e-5, "likelihood kernel error")
+              f"{out['lik_err']:.3e} (rel {e32:.2e}), vs float64 plain rel "
+              f"{e64:.2e}; log p in [{ref.min().item():.1f}, "
+              f"{ref.max().item():.1f}]; packing kernel vs plain {pe:.2e} "
+              f"(rel {pr:.2e})")
+        check(e32 <= 1e-5 and e64 <= 1e-5, "likelihood kernel error")
+        check(pr <= 1e-6, "likelihood packing kernel error")
+        note(flik.job(cfg, specs), err=out["lik_err"],
+             pack={"err": pe, "rel_err": pr})
 
     # ---- (8) scan: the kernel vs the plain version at B=256, T2=6 on the
     # trained weights with pre-drawn eps, then at B=255 (the small tile's
@@ -1219,16 +1306,29 @@ def training_slice(card: str, dev, cfg, model) -> dict:
         for dt in fr.DTYPES:
             out[f"pack_ms_{dt}"] = time_cuda(lambda: fscan.prepare_params(
                 model.params["dynamics"], cfg, dt), iters=10, warmup=2)
-        prep_o = fspn.prepare(specs.obj, sparams["obj_spn"])
-        prep_b = fspn.prepare(specs.bg, sparams["bg_spn"])
         (so, po, xo, wo), (sb, pb, xb, wb) = spn_in["obj"], spn_in["bg"]
+        # the packing kernels (`prepare`, once a call) vs pack_reference
+        pack = {"likelihood": (
+            lambda: flik.prepare(cfg, specs, sparams),
+            lambda: (fspn.pack_reference(so, po),
+                     fspn.pack_reference(sb, pb)), (so, sb))}
+        for name, spec, prm in (("obj", so, po), ("bg", sb, pb)):
+            pack[name] = (lambda spec=spec, prm=prm: fspn.prepare(spec, prm),
+                          lambda spec=spec, prm=prm: fspn.pack_reference(
+                              spec, prm), (spec,))
+        for k, (k_fn, p_fn, ss) in pack.items():
+            pack[k] = (time_cuda(k_fn, iters=10, warmup=2),
+                       time_cuda(p_fn, iters=10, warmup=2), pack_bound(ss))
+        out["lik_pack_ms"] = pack["likelihood"][0]
+        prep_o, prep_b = fspn.prepare(so, po), fspn.prepare(sb, pb)
+        prep_l = flik.prepare(cfg, specs, sparams)
         kern = {
             "spn": (lambda: (fspn.launch_kernel(so, prep_o, xo, wo),
                              fspn.launch_kernel(sb, prep_b, xb, wb)),
                     lambda: (spn_lib.spn_log_prob(so, po, xo, wo),
                              spn_lib.spn_log_prob(sb, pb, xb, wb))),
-            "likelihood": (lambda: flik.launch_kernel(cfg, specs, prep_o,
-                                                      prep_b, flat, boxes),
+            "likelihood": (lambda: flik.launch_kernel(cfg, specs, prep_l,
+                                                      flat, boxes),
                            lambda: flik.likelihood_reference(
                                cfg, specs, sparams, flat, boxes)),
             "scan": (lambda: fscan.launch_kernel(packed, cfg, *scan_args,
@@ -1248,10 +1348,7 @@ def training_slice(card: str, dev, cfg, model) -> dict:
         n_obj * spn_flops(so) + n_bg * spn_flops(sb),
         4.0 * (2 * xo.numel() + 2 * xb.numel() + n_obj + n_bg)
         + spn_param_bytes(so) + spn_param_bytes(sb))
-    out["lik_bound"] = bound(
-        flat.shape[0] * lik_flops(cfg, specs),
-        4.0 * (flat.numel() + boxes.numel() + flat.shape[0])
-        + spn_param_bytes(so) + spn_param_bytes(sb))
+    out["lik_bound"] = lik_bound(cfg, specs, flat.shape[0])
     for name, key in (("spn", "spn_bound"), ("likelihood", "lik_bound"),
                       ("scan", "scan_bound")):
         ms, by = out[key]
@@ -1261,6 +1358,24 @@ def training_slice(card: str, dev, cfg, model) -> dict:
     phase("timing", f"scan weight packing (fused_scan.prepare_params, once "
           f"a scan_kernel call): float32 {out['pack_ms_float32']:.3f} ms, "
           f"bfloat16 {out['pack_ms_bfloat16']:.3f} ms on {card}")
+    for (label, job_), key in (
+            (("likelihood (both SPNs, one launch)", flik.job(cfg, specs)),
+             "likelihood"), (("object SPN", fspn.job(so)), "obj"),
+            (("background SPN", fspn.job(sb)), "bg")):
+        ms, plain_ms, (b_ms, by) = pack[key]
+        phase("timing", f"{label} packing kernel (`prepare`, once a call) "
+              f"{ms:.4f} ms, plain (pack_reference) {plain_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({by}) on {card}")
+        LIBS[lib_key(job_)]["pack"].update(ms=ms, plain_ms=plain_ms,
+                                           bound=(b_ms, by))
+    note(flik.job(cfg, specs), ms=out["likelihood_ms"],
+         plain_ms=out["likelihood_plain_ms"], bound=out["lik_bound"],
+         shape={"frames": flat.shape[0], "objects": cfg.num_obj})
+    for spec in (so, sb):
+        note(fspn.job(spec), ms=out["spn_ms"],
+             plain_ms=out["spn_plain_ms"], bound=out["spn_bound"],
+             shape={"obj": list(xo.shape), "bg": list(xb.shape),
+                    "timed": "obj and bg together"})
     return out
 
 

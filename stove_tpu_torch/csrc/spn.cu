@@ -4,20 +4,23 @@
 // kernel _make_kernel around spn_tile_body).  Same contract as
 // models/spn.py::spn_log_prob with a per-variable weight: every activation
 // from the Gaussian leaves to the root stays in shared memory; device
-// memory sees x and w in and one float per sample out.
+// memory sees x, w and the packed parameters in and one float per sample
+// out.
 //
 // Bound on this card.  At the training shapes (object SPN: 6144 patches of
 // V=100; background SPN: 2048 frames of V=1024) the inputs are 4.9 MB and
-// 16.8 MB, 1.5 us and 5.0 us at 3.35 TB/s, and the arithmetic (leaf terms,
-// mixtures, exps) is a few hundred MFLOP, a few us at the f32 CUDA-core
-// rate: the kernel is bound by latency, not by bytes or operations.
+// 16.8 MB, 1.5 us and 5.0 us at 3.35 TB/s; the arithmetic (6 operations
+// a leaf term, the mixtures, exps) is 0.48 GFLOP, 7.2 us at the f32
+// CUDA-core rate: the pair is bound by its operations.  Read once a sample, the parameters alone would be 0.4 GB and 0.4
+// GB through L2: the design reads them once a block (spn_tile.cuh).
 //
-// Design.  One warp per sample, WPB warps per block: the warp stages the
-// sample's x and w in shared memory (coalesced), then runs the shared
-// device function Spn::log_prob (spn_tile.cuh): lanes over the (r, l, i)
-// leaf sums and the (r, p, s) mixtures, parameters through L1.  No block-
-// wide barrier, so a warp whose sample lies past B simply exits.  Shapes
-// are compile-time (-DSPN_V, _R, _D, _I, _S): one library per SPN shape.
+// Design.  SPN_TB samples a block (ops/fused_spn.py::TILE), SPN_THREADS
+// threads: the block starts loading the first slot of parameters, stages its
+// samples' x and w with 16-byte cp.async copies (rows past B zeroed), and
+// runs the shared evaluator SpnTile (spn_tile.cuh).  Shapes are
+// compile-time (-DSPN_V, _R, _D, _I, _S, _TB): one library per SPN
+// shape.  The library also exports the packing kernel that lays the
+// parameters out for the evaluator (one launch).
 
 #include "spn_tile.cuh"
 
@@ -36,32 +39,56 @@
 #ifndef SPN_S
 #define SPN_S 10
 #endif
+#ifndef SPN_TB
+#define SPN_TB 8
+#endif
 
 namespace {
 
-constexpr int WPB = 4;                                   // warps per block
-using SpnT = Spn<SPN_V, SPN_R, SPN_D, SPN_I, SPN_S>;
-constexpr int PER_WARP = (2 * SPN_V + SpnT::SCRATCH + 3) / 4 * 4;
-constexpr size_t SMEM_BYTES = sizeof(float) * WPB * PER_WARP;
+using Tile = SpnTile<SPN_V, SPN_R, SPN_D, SPN_I, SPN_S, SPN_TB>;
+constexpr int XROWS = Tile::NSP * Tile::XS;              // floats of x (and of w)
+constexpr size_t SMEM_FLOATS = 2 * SPN_CHUNK + 2 * XROWS + Tile::SCRATCH + spn_r4(Tile::NSP);
+constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_FLOATS;
 static_assert(SMEM_BYTES <= 232448, "shared memory above the 227 KB a block can use");
 
-__global__ void __launch_bounds__(32 * WPB)
+__global__ void __launch_bounds__(SPN_THREADS)
 spn_kernel(const float* __restrict__ x, const float* __restrict__ w, int B,
-           SpnParams p, float* __restrict__ out) {
+           const float* __restrict__ gp, float* __restrict__ out) {
     extern __shared__ float4 smem4[];
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int b = blockIdx.x * WPB + warp;
-    if (b >= B) return;
-    float* xs = reinterpret_cast<float*>(smem4) + warp * PER_WARP;
-    float* ws = xs + SPN_V;
-    float* scratch = ws + SPN_V;
-    for (int v = lane; v < SPN_V; v += 32) {
-        xs[v] = x[(size_t)b * SPN_V + v];
-        ws[v] = w[(size_t)b * SPN_V + v];
+    float* ring = reinterpret_cast<float*>(smem4);
+    float* xs = ring + 2 * SPN_CHUNK;
+    float* ws = xs + XROWS;
+    float* scratch = ws + XROWS;
+    float* res = scratch + Tile::SCRATCH;
+    Tile::prefetch(gp, ring);
+    const int b0 = blockIdx.x * SPN_TB, nb = min(SPN_TB, B - b0);
+    if constexpr (SPN_V % 4 == 0) {
+        constexpr int V4 = SPN_V / 4;
+        for (int f = threadIdx.x; f < Tile::NSP * V4; f += SPN_THREADS) {
+            const int n = f / V4, c = 4 * (f % V4);
+            if (n < nb) {
+                spn_cp16(xs + n * Tile::XS + c, x + (size_t)(b0 + n) * SPN_V + c);
+                spn_cp16(ws + n * Tile::XS + c, w + (size_t)(b0 + n) * SPN_V + c);
+            } else {
+                *reinterpret_cast<float4*>(xs + n * Tile::XS + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+                *reinterpret_cast<float4*>(ws + n * Tile::XS + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+        }
+    } else {
+        for (int f = threadIdx.x; f < Tile::NSP * SPN_V; f += SPN_THREADS) {
+            const int n = f / SPN_V, v = f % SPN_V;
+            xs[n * Tile::XS + v] = n < nb ? x[(size_t)(b0 + n) * SPN_V + v] : 0.f;
+            ws[n * Tile::XS + v] = n < nb ? w[(size_t)(b0 + n) * SPN_V + v] : 0.f;
+        }
     }
-    __syncwarp();
-    const float lp = SpnT::log_prob(xs, ws, p, scratch, lane);
-    if (lane == 0) out[b] = lp;
+    spn_commit();
+    Tile::run(xs, ws, gp, ring, scratch, res);
+    if ((int)threadIdx.x < nb) out[b0 + threadIdx.x] = res[threadIdx.x];
+}
+
+__global__ void __launch_bounds__(256) spn_pack_kernel(SpnSrc src, float* __restrict__ out) {
+    const int idx = blockIdx.x * 256 + threadIdx.x;
+    if (idx < Tile::PACK_ITEMS) Tile::pack(idx, src, out);
 }
 
 }  // namespace
@@ -69,21 +96,31 @@ spn_kernel(const float* __restrict__ x, const float* __restrict__ w, int B,
 extern "C" {
 
 int stove_spn_smem_bytes() { return (int)SMEM_BYTES; }
+int stove_spn_floats() { return Tile::FLOATS; }
 
 // Launches on `stream`; returns the CUDA error code (0 = ok).  Pointers are
-// device pointers laid out by ops/fused_spn.py::prepare.
-cudaError_t stove_spn_launch(const float* x, const float* w, int B,
-                             const int* perm, const int* bounds,
-                             const float* mu, const float* sd,
-                             const float* logsd, const float* sumw,
-                             const float* root, float* out, void* stream) {
+// device pointers; `gp` is the packed buffer stove_spn_pack writes (16-byte
+// aligned, as are x and w).
+cudaError_t stove_spn_launch(const float* x, const float* w, int B, const float* gp, float* out,
+                             void* stream) {
     if (B <= 0) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        spn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    cudaError_t err = cudaFuncSetAttribute(spn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)SMEM_BYTES);
     if (err != cudaSuccess) return err;
-    const SpnParams p{perm, bounds, mu, sd, logsd, sumw, root};
-    const int grid = (B + WPB - 1) / WPB;
-    spn_kernel<<<grid, 32 * WPB, SMEM_BYTES, (cudaStream_t)stream>>>(x, w, B, p, out);
+    const int grid = (B + SPN_TB - 1) / SPN_TB;
+    spn_kernel<<<grid, SPN_THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(x, w, B, gp, out);
+    return cudaGetLastError();
+}
+
+// The packed buffer (stove_spn_floats() floats) from the SPN's parameters:
+// mu, raw std (R, V, I), perm (R, V) int32, the D sum-logit tensors for
+// d = D-1 .. 0 (unused slots null), the root logits; sd = min_std + span *
+// sigmoid(raw).
+cudaError_t stove_spn_pack(const float* mu, const float* raw, const int* perm, const float* l0,
+                           const float* l1, const float* l2, const float* l3, const float* root,
+                           float min_std, float span, float* out, void* stream) {
+    const SpnSrc src{mu, raw, perm, {l0, l1, l2, l3}, root, min_std, span};
+    spn_pack_kernel<<<(Tile::PACK_ITEMS + 255) / 256, 256, 0, (cudaStream_t)stream>>>(src, out);
     return cudaGetLastError();
 }
 

@@ -4,15 +4,19 @@ Counterpart of `stove_tpu/ops/pallas_likelihood.py::likelihood_fused`.
 The kernel (`csrc/likelihood.cu`) carries each frame from its pixels and
 boxes to the summed log-density: glimpses, patch-space claim weights,
 background visibility, the object SPN on every patch and the background
-SPN on the frame, with the SPN device function it shares with
-`csrc/spn.cu`; see the notes at the top of the source.
+SPN on the frame, a tile of frames a block, with the SPN tile evaluator it
+shares with `csrc/spn.cu`; see the notes at the top of the sources.
 
 * `patch_weights` and `likelihood_reference` are the plain version
   (`supair.likelihood` on the patch-space overlap path with dense SPNs,
   supair.py:158-241); `models/supair.py` builds its `likelihood_impl="xla"`
   path from `patch_weights` too.
+* `prepare` packs both SPNs' parameters in one launch of the library's
+  packing kernel (`fused_spn.layout`); `grids` caches the sample grids.
 * `launch_kernel` checks its inputs, launches once on the current stream
-  and counts its launches (`launch_kernel.launches`).
+  and counts its launches (`launch_kernel.launches`, and by library in
+  `launch_kernel.by_library`; the packing kernel's in
+  `prepare.by_library`).
 * `likelihood_fused` is the dispatch `likelihood_impl="pallas"` takes: the
   kernel on CUDA tensors, the plain version on CPU tensors, and the plain
   version's gradient on both.
@@ -95,7 +99,7 @@ def likelihood_reference(cfg: Config, specs: SupairSpecs, params: Dict,
 def job(cfg: Config, specs: SupairSpecs) -> _build.Job:
     return ("likelihood.cu",
             (f"-DLIK_O={cfg.num_obj}", f"-DLIK_P={cfg.patch_size}",
-             f"-DLIK_IMG={cfg.img_size}",
+             f"-DLIK_IMG={cfg.img_size}", f"-DLIK_TB={fused_spn.TILE}",
              f"-DLIK_OVERLAP={int(_overlap(cfg, cfg.num_obj))}",
              *fused_spn.spec_defines(specs.obj, "OBJ"),
              *fused_spn.spec_defines(specs.bg, "BG")))
@@ -104,9 +108,14 @@ def job(cfg: Config, specs: SupairSpecs) -> _build.Job:
 def _setup(lib: ctypes.CDLL) -> None:
     lib.stove_lik_smem_bytes.restype = ctypes.c_int
     lib.stove_lik_smem_bytes.argtypes = []
+    lib.stove_lik_floats.restype = ctypes.c_int
+    lib.stove_lik_floats.argtypes = [ctypes.c_int]
     lib.stove_lik_launch.restype = ctypes.c_int
-    lib.stove_lik_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] \
-        + [ctypes.c_void_p] * 18
+    lib.stove_lik_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                                     + [ctypes.c_void_p] * 6)
+    half = [ctypes.c_void_p] * 8 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    lib.stove_lik_pack.restype = ctypes.c_int
+    lib.stove_lik_pack.argtypes = half * 2 + [ctypes.c_void_p]
 
 
 def load(cfg: Config, specs: SupairSpecs) -> ctypes.CDLL:
@@ -114,14 +123,64 @@ def load(cfg: Config, specs: SupairSpecs) -> ctypes.CDLL:
     return _build.load(src, defines, _setup)
 
 
-_SPN_ORDER = ("perm", "bounds", "mu", "sd", "logsd", "sumw", "root")
+_GRIDS: Dict[Tuple[str, int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def launch_kernel(cfg: Config, specs: SupairSpecs, obj_prep: Dict,
-                  bg_prep: Dict, frames: torch.Tensor, boxes: torch.Tensor
-                  ) -> torch.Tensor:
-    """One launch: frames (B, H, W), boxes (B, O, 4) f32 CUDA → (B,)."""
-    _build.check_device(frames, boxes, *obj_prep.values(), *bg_prep.values())
+def grids(device: torch.device, patch: int, img: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The patch grid linspace(−1, 1, P) and the pixel grid linspace(−1, 1,
+    H) on `device` as the plain version builds them, cached per (device,
+    P, H)."""
+    key = (str(device), patch, img)
+    got = _GRIDS.get(key)
+    if got is None:
+        got = (torch.linspace(-1.0, 1.0, patch, device=device),
+               torch.linspace(-1.0, 1.0, img, device=device))
+        _GRIDS[key] = got
+    return got
+
+
+def prepare(cfg: Config, specs: SupairSpecs, params: Dict
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both SPNs' packed buffers (`fused_spn.layout`): one launch of the
+    library's packing kernel on CUDA parameters, `fused_spn.pack_reference`
+    on CPU ones."""
+    po, pb = params["obj_spn"], params["bg_spn"]
+    dev = po["leaf_mu"].device
+    if dev.type == "cpu":
+        return (fused_spn.pack_reference(specs.obj, po),
+                fused_spn.pack_reference(specs.bg, pb))
+    _build.check_device(*po.values(), *pb.values())
+    lib = load(cfg, specs)
+    floats = [fused_spn.layout(s)["floats"] for s in (specs.obj, specs.bg)]
+    if [lib.stove_lik_floats(0), lib.stove_lik_floats(1)] != floats:
+        raise RuntimeError(f"packed layouts: the library's "
+                           f"{[lib.stove_lik_floats(i) for i in (0, 1)]} "
+                           f"floats, layout()'s {floats}")
+    bufs = tuple(torch.empty(n, dtype=torch.float32, device=dev)
+                 for n in floats)
+    ao, _keep_o = fused_spn.pack_args(specs.obj, po)
+    ab, _keep_b = fused_spn.pack_args(specs.bg, pb)
+    with torch.cuda.device(dev):
+        err = lib.stove_lik_pack(*ao, bufs[0].data_ptr(), *ab,
+                                 bufs[1].data_ptr(), _build.stream_of(bufs[0]))
+    if err != 0:
+        raise RuntimeError(f"likelihood packing kernel failed: CUDA error "
+                           f"{err}")
+    key = " ".join(job(cfg, specs)[1])
+    prepare.by_library[key] = prepare.by_library.get(key, 0) + 1
+    return bufs
+
+
+prepare.by_library = {}           # launches by library (its defines)
+
+
+def launch_kernel(cfg: Config, specs: SupairSpecs,
+                  packed: Tuple[torch.Tensor, torch.Tensor],
+                  frames: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """One launch: frames (B, H, W), boxes (B, O, 4) f32 CUDA → (B,);
+    `packed` the two buffers of `prepare`."""
+    _build.check_device(frames, boxes, *packed)
     B = frames.shape[0]
     O, P, H = cfg.num_obj, cfg.patch_size, cfg.img_size
     if tuple(frames.shape) != (B, H, H) or tuple(boxes.shape) != (B, O, 4):
@@ -130,26 +189,33 @@ def launch_kernel(cfg: Config, specs: SupairSpecs, obj_prep: Dict,
                          f"(B, {O}, 4)")
     if frames.dtype != torch.float32 or boxes.dtype != torch.float32:
         raise TypeError("the likelihood kernel takes float32 frames and boxes")
-    frames, boxes = frames.contiguous(), boxes.contiguous()
+    for spec, buf in zip((specs.obj, specs.bg), packed):
+        if (buf.dtype != torch.float32
+                or buf.numel() != fused_spn.layout(spec)["floats"]):
+            raise ValueError("packed buffers: float32, as `prepare` lays "
+                             "them out")
+    frames, boxes = fused_spn.aligned(frames), boxes.contiguous()
+    packed = [fused_spn.aligned(b) for b in packed]
     out = torch.empty((B,), dtype=torch.float32, device=frames.device)
     if B == 0:
         return out
     lib = load(cfg, specs)
-    grid_p = torch.linspace(-1.0, 1.0, P, device=frames.device)
-    grid_img = torch.linspace(-1.0, 1.0, H, device=frames.device)
+    grid_p, grid_img = grids(frames.device, P, H)
     with torch.cuda.device(frames.device):
         err = lib.stove_lik_launch(
             frames.data_ptr(), boxes.data_ptr(), B, grid_p.data_ptr(),
-            grid_img.data_ptr(), *[obj_prep[k].data_ptr() for k in _SPN_ORDER],
-            *[bg_prep[k].data_ptr() for k in _SPN_ORDER], out.data_ptr(),
-            _build.stream_of(frames))
+            grid_img.data_ptr(), packed[0].data_ptr(), packed[1].data_ptr(),
+            out.data_ptr(), _build.stream_of(frames))
     if err != 0:
         raise RuntimeError(f"likelihood kernel launch failed: CUDA error {err}")
     launch_kernel.launches += 1
+    key = " ".join(job(cfg, specs)[1])
+    launch_kernel.by_library[key] = launch_kernel.by_library.get(key, 0) + 1
     return out
 
 
 launch_kernel.launches = 0
+launch_kernel.by_library = {}     # launches by library (its defines)
 
 
 def likelihood_fused(cfg: Config, specs: SupairSpecs, params: Dict,
@@ -175,10 +241,7 @@ def likelihood_fused(cfg: Config, specs: SupairSpecs, params: Dict,
                                     args[-1])
 
     def fast(*args):
-        p = split(args)
-        return launch_kernel(cfg, specs,
-                             fused_spn.prepare(specs.obj, p["obj_spn"]),
-                             fused_spn.prepare(specs.bg, p["bg_spn"]),
+        return launch_kernel(cfg, specs, prepare(cfg, specs, split(args)),
                              args[-2], args[-1])
 
     inputs = ([params["obj_spn"][k] for k in ko]

@@ -20,7 +20,16 @@
    criterion (tests/test_torch_fused_rollout.py::
    test_action_kernel_matches_plain_version): the kernel's distance from
    the plain version in float64 at most twice the float32 plain
-   version's, for this kernel and the other.
+   version's, for this kernel and the other.  Then, through the wrapper
+   (`fused_rollout.rollout`, the library and tile the test launches), at
+   both of the test's shapes (B=360, H=1 and B=100, H=8), the actions of
+   each draw from `torch.Generator().manual_seed(draw)`: per draw the
+   kernel's and the plain float32 version's distance from float64 for
+   states and rewards, and where (step, row, column) the kernel's largest
+   error sits; then the spread of the plain version's distance over the
+   draws.
+
+`--readings 3` runs reading 3 alone (its libraries only).
 
 Times are CUDA events, the best of three interleaved rounds.  Prints one
 line per reading, with the card's name and power limit.
@@ -171,7 +180,10 @@ def main(argv=None) -> int:
                     help="directory with another version's rollout.cu and "
                          "dyn_core.cuh")
     ap.add_argument("--draws", type=int, default=24)
+    ap.add_argument("--readings", default="1,2,3",
+                    help="comma-separated readings to run (1, 2, 3)")
     args = ap.parse_args(argv)
+    readings = {int(r) for r in args.readings.split(",")}
     if not torch.cuda.is_available():
         print("rollout_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -186,20 +198,31 @@ def main(argv=None) -> int:
     if args.other is not None:
         srcs["other"] = args.other
     jobs = {}
+    PROBE.mkdir(parents=True, exist_ok=True)
     for label, src in srcs.items():
-        rep_src = patched(src, f"{label}_rep")
         for m, (cfg, dyn) in models.items():
             d = fr.job(fr.kernel_config(cfg, dyn), False, "float32", 16)[1]
-            for rep in (0, 1, 2):
-                jobs[f"{label}_{m}_rep{rep}"] = (rep_src, d + (f"-DPROBE_REP={rep}",))
             jobs[f"{label}_{m}"] = (src, d)
-    whole = patched(srcs["this"], "this_whole", whole=True)
-    cfg, dyn = models["billiards"]
-    jobs["this_billiards_whole"] = (whole, fr.job(cfg, False, "float32", 16)[1])
-    PROBE.mkdir(parents=True, exist_ok=True)
+            if 1 in readings:
+                rep_src = patched(src, f"{label}_rep")
+                for rep in (0, 1, 2):
+                    jobs[f"{label}_{m}_rep{rep}"] = (rep_src, d + (f"-DPROBE_REP={rep}",))
+    if 1 in readings:
+        whole = patched(srcs["this"], "this_whole", whole=True)
+        cfg, dyn = models["billiards"]
+        jobs["this_billiards_whole"] = (whole, fr.job(cfg, False, "float32", 16)[1])
     libs = build(jobs)
+    if 1 in readings:
+        loop_reading(srcs, models, libs, dev)
+    if 2 in readings:
+        flip_reading(models, args.draws, dev)
+    if 3 in readings:
+        criterion_reading(srcs, models, libs, args.draws, dev)
+    return 0
 
-    # 1. the FMA loop against the rest of the kernel
+
+def loop_reading(srcs, models, libs, dev) -> None:
+    """1. the FMA loop against the rest of the kernel"""
     B, H = 16384, 92
     for label in srcs:
         for m, (cfg, dyn) in models.items():
@@ -225,13 +248,16 @@ def main(argv=None) -> int:
           f"{best_ms(lambda: launch(lib, buf, cfg, z0, None, H, True)):.2f} ms",
           flush=True)
 
-    # 2. bf16 flips over seeded draws
+
+
+def flip_reading(models, draws: int, dev) -> None:
+    """2. bf16 flips over seeded draws"""
     for m, B in (("billiards", 16384), ("billiards", 100), ("avoidance", 576),
                  ("avoidance", 16384)):
         cfg, dyn = models[m]
         prep = fr.prepare_params(dyn, cfg, "bfloat16")
         seen = {}
-        for seed in range(args.draws):
+        for seed in range(draws):
             z0 = z0_of(cfg, B, 5 + 100 * seed, dev)
             acts = (torch.randint(0, cfg.num_actions, (B, 4), generator=torch.
                                   Generator().manual_seed(seed)).to(dev)
@@ -246,11 +272,22 @@ def main(argv=None) -> int:
                 seen.setdefault("rewards", []).append(
                     flips(r[..., None], br[..., None], frw[..., None]))
         for what, v in seen.items():
-            print(f"flips {m} B={B} {what} over {args.draws} draws: ratio of "
+            print(f"flips {m} B={B} {what} over {draws} draws: ratio of "
                   f"the maxima {spread([x[0] for x in v])}; share of moved "
                   f"entries {spread([x[1] for x in v])}", flush=True)
 
-    # 3. the float32 card test's criterion over seeded draws
+
+
+def where(err: torch.Tensor) -> str:
+    """(step, row, column) of the largest entry of a (B, H, ...) error."""
+    idx = int(err.argmax())
+    b, rest = divmod(idx, err[0].numel())
+    t, col = divmod(rest, max(1, err[0, 0].numel()))
+    return f"step {t + 1} row {b} col {col}"
+
+
+def criterion_reading(srcs, models, libs, draws: int, dev) -> None:
+    """3. the float32 card test's criterion over seeded draws"""
     cfg, dyn = models["avoidance"]
     d64 = ckpt.params_from_numpy(dyn, dev, torch.float64)
     B, H = 100, 8
@@ -259,7 +296,7 @@ def main(argv=None) -> int:
         lib = libs[f"{label}_avoidance"]
         buf = params_for(lib, dyn, cfg)
         ok, ks = 0, []
-        for seed in range(args.draws):
+        for seed in range(draws):
             acts = torch.randint(0, cfg.num_actions, (B, H), generator=torch.
                                  Generator().manual_seed(seed)).to(dev)
             s, r = launch(lib, buf, cfg, z0, acts.to(torch.int32), H, False)
@@ -272,8 +309,44 @@ def main(argv=None) -> int:
             ks.append(max(a / b for a, b in zip(k, p)))
         print(f"criterion {label} avoidance B={B} H={H}: kernel within 2x the "
               f"float32 plain version's distance from float64 in {ok} of "
-              f"{args.draws} draws; ratio {spread(ks)}", flush=True)
-    return 0
+              f"{draws} draws; ratio {spread(ks)}", flush=True)
+    # the card test itself, through the wrapper, with seeded actions
+    for B, H in ((360, 1), (100, 8)):
+        z0 = fr_z0(cfg, B, dev)
+        plain_d = {"states": [], "rewards": []}
+        ok = 0
+        for seed in range(draws):
+            acts = torch.randint(0, cfg.num_actions, (B, H), generator=torch.
+                                 Generator().manual_seed(seed)).to(dev)
+            s, r = fr.rollout(dyn, cfg, z0, H, sample=False, actions=acts)
+            ps, pr = fr.rollout_states_reference(dyn, cfg, z0, H, None, acts)
+            ws, wr = fr.rollout_states_reference(d64, cfg, z0.double(), H,
+                                                 None, acts)
+            line, good = [], True
+            for what, got, plain, want in (("states", s, ps, ws),
+                                           ("rewards", r, pr, wr)):
+                e = (got.double() - want).abs()
+                k = e.max().item()
+                p = (plain.double() - want).abs().max().item()
+                plain_d[what].append(p)
+                passed = k <= 2 * p + 1e-6 and (H > 1 or k <= 1e-5)
+                good &= passed
+                line.append(f"{what} kernel {k:.3e} plain {p:.3e} "
+                            f"({'pass' if passed else 'FAIL'}, kernel max at "
+                            f"{where(e)})")
+            ok += good
+            print(f"card test B={B} H={H} draw {seed}: " + "; ".join(line),
+                  flush=True)
+        print(f"card test B={B} H={H}: passes {ok} of {draws} draws; plain "
+              f"float32 distance from float64 over the draws: states "
+              f"{spread(plain_d['states'])}, rewards "
+              f"{spread(plain_d['rewards'])}", flush=True)
+
+
+def fr_z0(cfg, B: int, dev):
+    """The card test's states (tests/test_torch_fused_rollout.py::_z0, seed
+    6)."""
+    return z0_of(cfg, B, 6, dev)
 
 
 if __name__ == "__main__":

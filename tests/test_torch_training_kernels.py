@@ -15,6 +15,7 @@ bf16_parity.hold_bf16.  Both scan libraries run on the rollout's
 tensor-core dynamics core, at the tile `fused_scan.tile_for` picks.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,9 +46,9 @@ def test_wrappers_reject_cpu_tensors(cpu_model):
     x = torch.rand(4, 100)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fspn.launch_kernel(specs.obj, prep, x, x)
-    prep_b = fspn.prepare(specs.bg, cpu_model.params["supair"]["bg_spn"])
+    packed = flik.prepare(cfg, specs, cpu_model.params["supair"])
     with pytest.raises(ValueError, match="CUDA tensors"):
-        flik.launch_kernel(cfg, specs, prep, prep_b, torch.rand(2, 32, 32),
+        flik.launch_kernel(cfg, specs, packed, torch.rand(2, 32, 32),
                            torch.rand(2, 3, 4))
     z1 = torch.zeros(2, 3, cfg.full_state_dim)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -59,23 +60,96 @@ def test_wrappers_reject_cpu_tensors(cpu_model):
 
 
 def test_prepared_spn_layout(cpu_model):
-    """The kernel's buffers: leaves in permuted order, softmax'd mixture
-    weights of every level, log-softmax root."""
-    spec = cpu_model.specs.supair.bg
-    p = cpu_model.params["supair"]["bg_spn"]
-    prep = fspn.prepare(spec, p)
-    r, k = 1, 77
-    v = int(spec.perms[r, k])
-    torch.testing.assert_close(prep["mu"][r, k], p["leaf_mu"][r, v])
-    torch.testing.assert_close(prep["logsd"][r, k],
-                               torch.log(spn_lib._leaf_std(
-                                   spec, p["leaf_raw_std"][r, v])))
-    assert prep["bounds"].tolist() == [0, 128, 256, 384, 512, 640, 768, 896,
-                                       1024]
-    sizes = [p[f"sum_logits_{d}"].numel() for d in (2, 1, 0)]
-    assert prep["sumw"].numel() == sum(sizes)
-    torch.testing.assert_close(prep["sumw"][:sizes[0]].reshape(
-        p["sum_logits_2"].shape).sum(-1), torch.ones(2, 4, 6))
+    """The packed buffer (`fused_spn.pack_reference`, the packing kernel's
+    plain version) against the JAX package's `pallas_spn._prepare` on the
+    same numpy-seeded parameters, for both SPN shapes: the leaves in
+    permuted order as (mu, sqrt(1/2)/sd, -log sd - log(2 pi)/2, the
+    variable's bits), every level's softmaxed weights [p][s][i*c + j] (the
+    JAX kernel's W2T[p, j, s*c + i]), the root log-weights; and the leaf
+    regions the evaluator sums (spn_tile.cuh's `bound`) are the JAX scope
+    matrix's.  The JAX package is imported here, not at the top: the card's
+    machine runs this file's `cuda` tests without it."""
+    import jax.numpy as jnp
+    from stove_tpu.models import spn as jspn
+    from stove_tpu.ops import pallas_spn
+    rng = np.random.default_rng(11)
+    for spec, tp in ((cpu_model.specs.supair.obj,
+                      cpu_model.params["supair"]["obj_spn"]),
+                     (cpu_model.specs.supair.bg,
+                      cpu_model.params["supair"]["bg_spn"])):
+        R, V, I, S, D = (spec.num_reps, spec.num_vars, spec.num_leaves,
+                         spec.num_sums, spec.depth)
+        L = 2 ** D
+        raw = {k: (rng.uniform(size=v.shape) if k == "leaf_mu"
+                   else rng.standard_normal(v.shape)).astype(np.float32)
+               for k, v in tp.items()}
+        buf = fspn.pack_reference(spec, {k: torch.from_numpy(v)
+                                         for k, v in raw.items()}).numpy()
+        mu_t, std_t, scope_t, w2t, root = pallas_spn._prepare(
+            jspn.SpnSpec(*spec), {k: jnp.asarray(v) for k, v in raw.items()})
+        lay = fspn.layout(spec)
+        assert buf.size == lay["floats"]
+        leaf = buf[:lay["leaf"]].reshape(R, V, I, 4)
+        perm = spec.perms
+        by_k = np.take_along_axis(np.asarray(std_t).transpose(0, 2, 1),
+                                  perm[:, :, None], 1)          # (R, V, I)
+        np.testing.assert_array_equal(
+            leaf[..., 0], np.take_along_axis(
+                np.asarray(mu_t).transpose(0, 2, 1), perm[:, :, None], 1))
+        np.testing.assert_allclose(leaf[..., 1], np.sqrt(0.5) / by_k,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(
+            leaf[..., 2], -np.log(by_k) - 0.5 * np.log(2 * np.pi),
+            rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(leaf[..., 3].view(np.int32),
+                                      np.repeat(perm[:, :, None], I, 2))
+        c = I
+        for lvl, d in enumerate(range(D - 1, -1, -1)):
+            off, wrep = lay["levels"][d]
+            P = 2 ** d
+            got = buf[off:off + R * wrep].reshape(R, wrep)[:, :P * S * c * c]
+            want = np.asarray(w2t[lvl]).reshape(R, P, c, S, c).transpose(
+                0, 1, 3, 4, 2)                            # [r, p, s, i, j]
+            np.testing.assert_allclose(got.reshape(R, P, S, c, c), want,
+                                       rtol=1e-6, atol=1e-7)
+            c = S
+        np.testing.assert_allclose(buf[lay["root"]:lay["root"] + R * S],
+                                   np.asarray(root), rtol=1e-6, atol=1e-6)
+
+        def bound(l):                     # spn_tile.cuh's SpnLayout::bound
+            q, rem = divmod(l * V, L)
+            return q + 1 if 2 * rem > L else q + (q & 1) if 2 * rem == L else q
+
+        scope = np.asarray(scope_t)                       # (R, V, L)
+        for r in range(R):
+            for l in range(L):
+                region = np.zeros(V, np.float32)
+                region[perm[r, bound(l):bound(l + 1)]] = 1.0
+                np.testing.assert_array_equal(scope[r, :, l], region)
+
+
+def test_likelihood_grids_are_cached_linspaces():
+    """The likelihood wrapper's sample grids, built once per (device, P,
+    H), equal the plain version's torch.linspace exactly."""
+    cpu = torch.device("cpu")
+    gp, gi = flik.grids(cpu, 10, 32)
+    assert flik.grids(cpu, 10, 32)[0] is gp
+    assert torch.equal(gp, torch.linspace(-1.0, 1.0, 10))
+    assert torch.equal(gi, torch.linspace(-1.0, 1.0, 32))
+    assert torch.equal(flik.grids(cpu, 7, 5)[1], torch.linspace(-1.0, 1.0, 5))
+
+
+def test_tile_rule_fills_the_card(cpu_model):
+    """One tile, 8 samples a block, in every SPN and likelihood library:
+    the training step's 2048 frames and 6144 patches launch at least a
+    block per SM of the H100's 132."""
+    cfg, specs = cpu_model.cfg, cpu_model.specs.supair
+    assert fspn.TILE == 8
+    n = cfg.batch_size * cfg.window
+    assert min(-(-n // fspn.TILE), -(-n * cfg.num_obj // fspn.TILE)) >= 132
+    for spec in (specs.obj, specs.bg):
+        assert f"-DSPN_TB={fspn.TILE}" in fspn.job(spec)[1]
+    assert f"-DLIK_TB={fspn.TILE}" in flik.job(cfg, specs)[1]
 
 
 def test_build_names_libraries_by_content(cpu_model):
@@ -188,20 +262,32 @@ def test_scan_kernel_matches_float64_plain(card, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3, 255, 257, 2113])
-def test_kernels_on_ragged_batches(card, B):
-    """Batches that do not fill the last block -- the SPN's and likelihood's
-    4 warps, the scan's small tile (B < 2112) and its 16-sample tile (2113)
-    -- and the likelihood without the overlap correction (the scan's
-    float32 library).  The fixture's 256 frames repeat past B=256.  On
-    these random states the trained map amplifies float32 rounding over
-    the 6 steps: beyond a dozen samples the plain float32 loop's own
-    distance from float64 passes 1e-4 (tools/scan_probe.py), so the scan
-    is held, as chip_smoke.py phase (2) holds long rollouts, to 1e-4 or
-    twice that distance where it is larger (kl: 2e-5 relative or twice the
-    plain loop's); phases (8) and (17) hold the posterior's own inputs at
-    B=255 and 2113 to 1e-4."""
-    model, frames, boxes, gen = card
+def test_packing_kernels_match_plain_version(card):
+    """The packing kernels (`fused_spn.prepare`, both SPNs of
+    `fused_likelihood.prepare` in one launch) against `pack_reference`:
+    1e-6 relative to max(|value|, 1) (expf/logf against torch's), the
+    variables' bits equal."""
+    model = card[0]
+    specs, p = model.specs.supair, model.params["supair"]
+    both = flik.prepare(model.cfg, specs, p)
+    for spec, prm, lik_buf in ((specs.obj, p["obj_spn"], both[0]),
+                               (specs.bg, p["bg_spn"], both[1])):
+        ref = fspn.pack_reference(spec, prm)
+        leaf = fspn.layout(spec)["leaf"]
+        for got in (fspn.prepare(spec, prm), lik_buf):
+            assert torch.equal(got[3:leaf:4].view(torch.int32),
+                               ref[3:leaf:4].view(torch.int32))
+            keep = torch.ones_like(ref, dtype=torch.bool)
+            keep[3:leaf:4] = False
+            err = ((got - ref).abs() / ref.abs().clamp_min(1.0))[keep]
+            assert err.max().item() <= 1e-6
+
+
+def _hold_spn_and_likelihood(card, B, gen):
+    """The likelihood (overlap correction on and off) and both SPNs on B
+    frames, B patches, against the plain version in float64: 1e-5 of
+    max(|log p|, 100); the background SPN's weights drawn from `gen`."""
+    model, frames, boxes, _ = card
     cfg, specs, p = model.cfg, model.specs.supair, model.params["supair"]
     reps = -(-B // boxes.shape[0])
     flat = frames.reshape(-1, 32, 32).repeat(reps, 1, 1)[:B].contiguous()
@@ -213,13 +299,49 @@ def test_kernels_on_ragged_batches(card, B):
                                             bx.double())
             err = (got.double() - ref).abs() / ref.abs().clamp_min(100.0)
             assert err.max().item() <= 1e-5
-        x = flat.reshape(B, -1)
-        w = torch.rand(x.shape, generator=gen).to(x.device)
-        got = fspn.spn_log_prob_fused(specs.bg, p["bg_spn"], x, w)
-        ref = spn_lib.spn_log_prob(specs.bg, _f64(p["bg_spn"]), x.double(),
-                                   w.double())
-        assert ((got.double() - ref).abs()
-                / ref.abs().clamp_min(100.0)).max().item() <= 1e-5
+        patches = glimpse.extract_glimpses(flat, bx, 10).reshape(-1, 100)
+        for spec, prm, x, g in ((specs.bg, p["bg_spn"], flat.reshape(B, -1),
+                                 gen),
+                                (specs.obj, p["obj_spn"], patches[:B],
+                                 torch.Generator().manual_seed(B))):
+            x = x.contiguous()
+            w = torch.rand(x.shape, generator=g).to(x.device)
+            got = fspn.spn_log_prob_fused(spec, prm, x, w)
+            ref = spn_lib.spn_log_prob(spec, _f64(prm), x.double(),
+                                       w.double())
+            assert ((got.double() - ref).abs()
+                    / ref.abs().clamp_min(100.0)).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [7, 8, 9, 2047, 2049])
+def test_spn_and_likelihood_on_tile_edges(card, B):
+    """Tile - 1, tile and tile + 1 samples (`fused_spn.TILE`, 8 a block),
+    and the training step's 2048 frames less and plus one: the last block
+    short by one or holding one sample.  Held as in
+    test_kernels_on_ragged_batches, on its own draws (the fixture's
+    generator feeds that test's random states)."""
+    _hold_spn_and_likelihood(card, B, torch.Generator().manual_seed(B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 255, 257, 2113])
+def test_kernels_on_ragged_batches(card, B):
+    """Batches that do not fill the last block -- the SPN's and likelihood's
+    8-sample tile, the scan's small tile (B < 2112) and its 16-sample tile
+    (2113) -- and the likelihood without the overlap correction (the
+    scan's float32 library).  The fixture's 256 frames
+    repeat past B=256.  On these random states the trained map amplifies
+    float32 rounding over the 6 steps: beyond a dozen samples the plain
+    float32 loop's own distance from float64 passes 1e-4
+    (tools/scan_probe.py), so the scan is held, as chip_smoke.py phase (2)
+    holds long rollouts, to 1e-4 or twice that distance where it is larger
+    (kl: 2e-5 relative or twice the plain loop's); phases (8) and (17) hold
+    the posterior's own inputs at B=255 and 2113 to 1e-4."""
+    model, frames, _, gen = card
+    cfg = model.cfg
+    _hold_spn_and_likelihood(card, B, gen)
+    with torch.no_grad():
         D = cfg.full_state_dim
         args = [0.1 * torch.randn((B, 3, D), generator=gen),
                 0.1 * torch.randn((B, 3, 2), generator=gen),
