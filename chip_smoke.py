@@ -22,7 +22,11 @@ training of the trained gravity model (ckpts/r4rp_grav_s32, full width)
 through the rollout kernel's open-loop std head, holds the bfloat16
 libraries against the plain version at bfloat16, plans with bfloat16
 leaves (`mcts_rollout_impl=pallas`) and times every rollout library in
-both precisions.  Training with `scan_impl=pallas` runs the scan's bf16
+both precisions, then drives the CLI's last modes -- `mode=generate`
+(and training from its files), `mode=viz` of the billiards and the
+avoidance model, `mode=profile` -- and holds the SuPAIR settings
+`spn_impl=matmul` and `overlap_impl=image` against float64.  Every phase
+that reads a corpus gets a fresh `data_dir`.  Training with `scan_impl=pallas` runs the scan's bf16
 library forward, as the JAX package's `_scan_pallas` does.  One line per
 phase, with the seconds since start:
 
@@ -197,13 +201,42 @@ phase, with the seconds since start:
                   their bounds (bf16: operations at the tensor-core peak)
                   and the weight packing each scan_kernel call does
 
+  (27) generate   mode=generate of preset=stove_billiards (64 train, 32
+                  test sequences) on the card into a fresh data_dir: both
+                  files load back equal, array for array, to split() on the
+                  card; one training step at batch 256 from those files
+                  (the Trainer generating nothing) with the scan and
+                  likelihood kernels, and one with the scan and SPN kernels
+                  (the fused likelihood evaluates both SPNs inside its own
+                  kernel): losses finite, those kernels launched
+  (28) viz        mode=viz of ckpts/r4rp_bill_s32 and ckpts/r4a_dense_s2:
+                  rollout_viz.gif (eval_rollout_steps frames, 264 x 128, by
+                  the port's own GIF header reader) and detect_grid.png
+                  under the run dir, nothing written under ckpts/, one
+                  launch of the rollout library (rollout_act's for the
+                  avoidance model); a run dir inside ckpts/ refused
+  (29) profile    mode=profile at the published batch (256 windows of 8
+                  frames), once with the three pallas impls and once with
+                  the scan and SPN kernels beside the plain likelihood: the
+                  trace (utils/profiling.py) parses; the device busy share
+                  over its 3 steps and the top device events; the scan's,
+                  likelihood's and SPN's kernels among its CUDA events
+  (30) supair     the plain likelihood at 2048 frames (posterior boxes of
+                  rendered frames) with spn_impl=matmul, with
+                  overlap_impl=image and with both, against the dense plain
+                  version in float64 with the same claim weights: 1e-5 of
+                  max(|log p|, 100), no kernel launched, each timed beside
+                  the dense float32 version; likelihood_impl=pallas with
+                  overlap_impl=image raises before any launch
+
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernel table (JSON; one entry per library,
 its launches counted on the main paths -- every run through the entry
 points and phase (5)'s throughput measurement -- by the wrappers' counts
-by library), the card's name and power limit, and the result JSON.  Writes nothing into the repository but the
-git-ignored build directory; runs write to a temporary directory.  Imports
-nothing of JAX or the JAX package.
+by library), the card's name and power limit, and the result JSON.
+Writes nothing into the repository but the git-ignored build directory;
+runs and corpora go to temporary directories.  Imports nothing of JAX or
+the JAX package.
 """
 
 from __future__ import annotations
@@ -255,6 +288,18 @@ SCAN_MODES = {"velocity_obs_full_std=False": dict(velocity_obs_full_std=False),
 
 def phase(name: str, msg: str) -> None:
     print(f"[{time.perf_counter() - T0:7.1f} s] ({name}) {msg}", flush=True)
+
+
+TEMP_DIRS: list = []         # directories made by this run, removed at the end
+
+
+def fresh_data() -> str:
+    """A `data_dir=` token naming a new empty directory: every phase that
+    reads a corpus (`ensure_dataset`) generates and writes its own, and
+    never reads one that an earlier run left under the default `data`."""
+    import tempfile
+    TEMP_DIRS.append(tempfile.mkdtemp(prefix="chip_smoke_data_"))
+    return f"data_dir={TEMP_DIRS[-1]}"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -434,7 +479,7 @@ def main() -> int:
     # ---- (4) eval through the entry point, counts read around it.  The
     # entry point sets its own float32 precision (TF32 off), so torch's
     # default cuDNN setting is restored first and the setting checked after.
-    argv = [f"restore={RUN}", "mode=eval"]
+    argv = [f"restore={RUN}", "mode=eval", fresh_data()]
     ecfg, _, edev = entry.build_config(argv)
     torch.backends.cudnn.allow_tf32 = True
     fr.launch_kernel.launches = 0
@@ -529,6 +574,7 @@ def main() -> int:
          shape={"model": "avoidance + random open head", "B": 576, "H": 10,
                 "sample": True})
     five = fifth_slice(card, dev, model, z_post)
+    six = sixth_slice(card, dev, model)
 
     # one entry per kernel library: the TPU kernel it replaces, its
     # launches on the main paths (every run through the entry points, and
@@ -603,7 +649,7 @@ def main() -> int:
         "gravity_eval": four["grav_eval"],
         "gravity_eval_sampled": four["grav_eval_sampled"],
         "gravity_resume": four["grav_resume"],
-        "rollout_timing": five["timing"],
+        "rollout_timing": five["timing"], "sixth_slice": six,
         "throughput_ms": {"float32": times[B], "bfloat16": times["bf16"]}},
         default=str))
     print(card)
@@ -719,9 +765,11 @@ def counted_since(snap: dict) -> dict:
 
 def count_main_paths() -> None:
     """Add the launches of every run through the entry points (mode=eval,
-    mode=train, mode=mcts) to MAIN_PATH, by library."""
+    mode=train, mode=mcts, mode=generate, mode=viz, mode=profile) to
+    MAIN_PATH, by library."""
     from stove_tpu_torch import main as entry
     from stove_tpu_torch.planning import runner
+    from stove_tpu_torch.utils import profiling
 
     def counted(fn):
         def run(*a, **k):
@@ -735,7 +783,10 @@ def count_main_paths() -> None:
 
     entry.run_eval = counted(entry.run_eval)
     entry.run_train = counted(entry.run_train)
+    entry.run_generate = counted(entry.run_generate)
+    entry.run_viz = counted(entry.run_viz)
     runner.run_planning = counted(runner.run_planning)
+    profiling.profile_train_steps = counted(profiling.profile_train_steps)
 
 
 @contextlib.contextmanager
@@ -883,33 +934,34 @@ def lik_flops(cfg, specs) -> float:
 
 
 def profile_step(trainer, batch_size: int, top: int = 12):
-    """torch.profiler over one STOVE step: device time by kernel name, the
-    device's busy time against the step's wall time."""
+    """torch.profiler over one STOVE step (`utils/profiling.trace`): device
+    time by kernel name, read from the trace it writes, the device's busy
+    time against the step's wall time."""
+    import os
+    import tempfile
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from stove_tpu_torch.envs import data as data_lib
+    from stove_tpu_torch.utils import profiling
 
     b = data_lib.sample_windows(trainer.train_ep, trainer.cfg,
                                 trainer.data_gen, batch_size)
     trainer.train_step(b)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(b)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]      # kernels, not aten ops
-    busy = sum(e.self_device_time_total for e in rows) / 1e3
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            t0 = time.perf_counter()
+            trainer.train_step(b)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows, _ = profiling.device_times(os.path.join(d, profiling.TRACE_FILE))
+    busy = sum(ms for ms, _ in rows.values())
+    top_rows = sorted(rows.items(), key=lambda kv: kv[1][0], reverse=True)
     out = [f"profile of one kernel-path STOVE step: wall {wall:.1f} ms, "
            f"device busy {busy:.1f} ms ({100 * busy / wall:.0f}%), "
            f"{len(rows)} kernel names"]
-    for e in rows[:top]:
-        out.append(f"  {e.self_device_time_total / 1e3:8.3f} ms "
-                   f"x{e.count:<4d} {e.key[:90]}")
+    for name, (ms, n) in top_rows[:top]:
+        out.append(f"  {ms:8.3f} ms x{n:<4d} {name[:90]}")
     return out
 
 
@@ -1106,7 +1158,7 @@ def training_slice(card: str, dev, cfg, model) -> dict:
     # warm-up and one STOVE step with the SPN kernel and the plain
     # likelihood; every loss finite, every kernel launched
     common = ["preset=stove_billiards", "num_train=64", "num_test=32",
-              "steps_per_epoch=1", f"run_dir={tmp}"]
+              "steps_per_epoch=1", f"run_dir={tmp}", fresh_data()]
     zero()
     t = time.perf_counter()
     cfg_a, _, dev_a = entry.build_config(
@@ -1220,7 +1272,8 @@ def training_slice(card: str, dev, cfg, model) -> dict:
     t = time.perf_counter()
     cfg_r, _, dev_r = entry.build_config(
         [f"restore={RUN}", "mode=train", "scan_impl=pallas",
-         "likelihood_impl=pallas", "num_epochs=361", f"run_dir={tmp}"])
+         "likelihood_impl=pallas", "num_epochs=361", f"run_dir={tmp}",
+         fresh_data()])
     tr_r, _ = entry.run_train(cfg_r, dev_r)
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t
@@ -1276,7 +1329,8 @@ def training_slice(card: str, dev, cfg, model) -> dict:
     trainers = {}
     for label, kw in (("kernels", ["scan_impl=pallas", "likelihood_impl=pallas"]),
                       ("plain", [])):
-        c, _, d = entry.build_config(common + kw + ["nolog=true"])
+        c, _, d = entry.build_config(common + kw + ["nolog=true",
+                                                    fresh_data()])
         trainers[label] = Trainer(c, device=d)
     for label in ("plain", "kernels", "kernels", "plain"):
         trn = trainers[label]
@@ -1533,7 +1587,8 @@ def avoidance_slice(card: str, dev) -> dict:
     check(0.9 <= ratio <= 1.1, f"action rollout dispersion ratio {ratio}")
 
     # ---- (14) mode=eval of the avoidance model through the entry point
-    ecfg, _, edev = entry.build_config([f"restore={AVOID}", "mode=eval"])
+    ecfg, _, edev = entry.build_config([f"restore={AVOID}", "mode=eval",
+                                        fresh_data()])
     torch.backends.cudnn.allow_tf32 = True
     eval_shapes = {}
     real_launch.launches = 0
@@ -1895,7 +1950,7 @@ def fourth_slice(card: str, dev) -> dict:
     # width (only the corpus cut), 2 warm-up + 3 STOVE steps through the
     # scan and likelihood kernels; every loss finite, reward terms too
     common = ["preset=stove_avoidance", "num_train=64", "num_test=32",
-              "steps_per_epoch=1", f"run_dir={tmp}"]
+              "steps_per_epoch=1", f"run_dir={tmp}", fresh_data()]
     zero()
     t = time.perf_counter()
     cfg_a, _, dev_a = entry.build_config(
@@ -2003,7 +2058,7 @@ def fourth_slice(card: str, dev) -> dict:
     cfg_r, _, dev_r = entry.build_config(
         [f"restore={AVOID}", "mode=train", "scan_impl=pallas",
          "likelihood_impl=pallas", f"num_epochs={acfg.num_epochs + 1}",
-         f"run_dir={tmp}"])
+         f"run_dir={tmp}", fresh_data()])
     tr_r, _ = entry.run_train(cfg_r, dev_r)
     torch.cuda.synchronize()
     n = counts()
@@ -2140,7 +2195,8 @@ def fourth_slice(card: str, dev) -> dict:
     # ---- (21) grav-eval: mode=eval of r4rp_grav_s32 through the entry
     # point, launches by (B, H, sampled, open head); then with the plain
     # rollout; the JAX band; the sampled metrics beside 8 plain draws
-    ecfg, _, edev = entry.build_config([f"restore={GRAV}", "mode=eval"])
+    ecfg, _, edev = entry.build_config([f"restore={GRAV}", "mode=eval",
+                                        fresh_data()])
     torch.backends.cudnn.allow_tf32 = True
     shapes = {}
     fr.launch_kernel.launches = 0
@@ -2211,7 +2267,7 @@ def fourth_slice(card: str, dev) -> dict:
     cfg_g, _, dev_g = entry.build_config(
         [f"restore={GRAV}", "mode=train", "scan_impl=pallas",
          "likelihood_impl=pallas", f"num_epochs={gcfg.num_epochs + 1}",
-         "eval_every=1", f"run_dir={tmp}"])
+         "eval_every=1", f"run_dir={tmp}", fresh_data()])
     with recording_rollouts(shapes):
         tr_g, res_g = entry.run_train(cfg_g, dev_g)
         torch.cuda.synchronize()
@@ -2713,5 +2769,226 @@ def fifth_slice(card: str, dev, model, z_post) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sixth slice: the CLI's last modes (generate, viz, profile) and the
+# SuPAIR settings spn_impl=matmul and overlap_impl=image
+# ---------------------------------------------------------------------------
+
+def sixth_slice(card: str, dev, model) -> dict:
+    import os
+    import tempfile
+
+    import torch
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch import tree
+    from stove_tpu_torch.envs import data as data_lib
+    from stove_tpu_torch.models import supair as sup_lib
+    from stove_tpu_torch.ops import fused_likelihood as flik
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.ops import fused_scan as fscan
+    from stove_tpu_torch.ops import fused_spn as fspn
+    from stove_tpu_torch.train import checkpoint as ckpt_lib
+    from stove_tpu_torch.train import visualize as viz
+    from stove_tpu_torch.utils import profiling
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_6_")
+    TEMP_DIRS.append(tmp)
+    libs = {"scan": fscan, "likelihood": flik, "spn": fspn, "rollout": fr}
+
+    def counts():
+        return {k: m.launch_kernel.launches for k, m in libs.items()}
+
+    def zero():
+        for m in libs.values():
+            m.launch_kernel.launches = 0
+
+    # ---- (27) generate: both splits written through the entry point on
+    # the card, read back equal to split(); one training epoch from those
+    # files through the kernels (the fused likelihood evaluates both SPNs
+    # in its own kernel, so the SPN kernel runs with the plain likelihood)
+    data = fresh_data()
+    argv = ["mode=generate", "preset=stove_billiards", "num_train=64",
+            "num_test=32", data, "device=cuda"]
+    t = time.perf_counter()
+    check(entry.main(argv) == 0, "mode=generate")
+    out["generate_s"] = time.perf_counter() - t
+    gcfg, _, _ = entry.build_config(argv)
+    for split in ("train", "test"):
+        got = data_lib.load(data_lib.dataset_path(gcfg, split), dev)
+        want = data_lib.split(gcfg, split, dev)
+        check(all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(got, want)),
+              f"the {split} file equals split() on the card")
+    real_split = data_lib.split
+
+    def refuse(*a, **k):
+        raise RuntimeError("the Trainer generated a corpus mode=generate "
+                           "wrote")
+
+    for i, (label, kw, want) in enumerate((
+            ("scan + likelihood", ["scan_impl=pallas",
+                                   "likelihood_impl=pallas",
+                                   "spn_impl=pallas"],
+             ("scan", "likelihood")),
+            ("scan + spn", ["scan_impl=pallas", "spn_impl=pallas"],
+             ("scan", "spn")))):
+        zero()
+        c, _, d = entry.build_config(
+            ["preset=stove_billiards", "num_train=64", "num_test=32", data,
+             f"run_dir={tmp}", f"run_name=from_files_{i}", "num_epochs=1",
+             "steps_per_epoch=1", "supair_only_epochs=0", "eval_every=100"]
+            + kw)
+        data_lib.split = refuse
+        try:
+            t = time.perf_counter()
+            tr, res = entry.run_train(c, d)
+            torch.cuda.synchronize()
+        finally:
+            data_lib.split = real_split
+        n = counts()
+        phase("generate", f"train + test files written in "
+              f"{out['generate_s']:.1f} s and equal to split(); one epoch "
+              f"({tr.step} step at batch {c.batch_size}) from them, {label} "
+              f"kernels, in {time.perf_counter() - t:.1f} s: loss "
+              f"{res['loss']:.2f}; launches {n}")
+        check(math.isfinite(res["loss"]) and tr.step == 1,
+              f"one finite step from the files ({label})")
+        check(all(n[k] > 0 for k in want), f"{label} kernels launched")
+
+    # ---- (28) viz of the billiards and the avoidance model: the GIF and
+    # the grid written under the run dir, one launch of the rollout
+    # library (rollout_act's for the avoidance model); a run dir in ckpts/
+    # refused
+    for run, act in ((RUN, False), (AVOID, True)):
+        rc = ckpt_lib.load_config(run)
+        before = {f: os.path.getmtime(os.path.join(run, f))
+                  for f in os.listdir(run)}
+        snap = library_counts()
+        t = time.perf_counter()
+        check(entry.main([f"restore={run}", "mode=viz", fresh_data(),
+                          f"run_dir={tmp}"]) == 0, f"mode=viz of {run}")
+        secs = time.perf_counter() - t
+        new = counted_since(snap)
+        info = viz.read_gif_info(os.path.join(tmp, rc.run_name,
+                                              "rollout_viz.gif"))
+        with open(os.path.join(tmp, rc.run_name, "detect_grid.png"),
+                  "rb") as f:
+            png = f.read(8)
+        phase("viz", f"mode=viz of {run} in {secs:.1f} s: GIF "
+              f"{info['width']}x{info['height']}, {info['frames']} frames of "
+              f"{info['delays_cs'][0] * 10} ms; launches {new}")
+        side = 4 * rc.img_size
+        check((info["frames"], info["width"], info["height"]) == (
+            rc.eval_rollout_steps, 2 * side + 8, side), f"GIF of {run}")
+        check(png == b"\x89PNG\r\n\x1a\n", "detect_grid.png is a PNG")
+        check(len(new) == 1 and list(new.values()) == [1] and (
+            "-DSTOVE_ACT=1" in next(iter(new))) == act,
+            f"mode=viz of {run} launched its rollout library once")
+        check(before == {f: os.path.getmtime(os.path.join(run, f))
+                         for f in os.listdir(run)},
+              f"nothing written in {run}")
+    try:
+        entry.main([f"restore={RUN}", "mode=viz", "run_dir=ckpts",
+                    fresh_data()])
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "mode=viz refuses a run dir in ckpts/")
+
+    # ---- (29) profile at the published batch: the trace parses; the
+    # device's busy share over the traced steps, the top device events;
+    # the scan's, likelihood's and SPN's kernels among its CUDA events
+    out["profile"] = {}
+    for i, (label, kw, want) in enumerate((
+            ("scan + likelihood + spn pallas",
+             ["scan_impl=pallas", "likelihood_impl=pallas",
+              "spn_impl=pallas"], ("scan_kernel", "likelihood_kernel")),
+            ("scan + spn pallas, plain likelihood",
+             ["scan_impl=pallas", "spn_impl=pallas"],
+             ("scan_kernel", "spn_kernel")))):
+        zero()
+        argv = ["mode=profile", "preset=stove_billiards", "num_train=64",
+                "num_test=32", fresh_data(), f"run_dir={tmp}",
+                f"run_name=profile_{i}"] + kw
+        pc = entry.build_config(argv)[0]
+        t = time.perf_counter()
+        check(entry.main(argv) == 0, f"mode=profile ({label})")
+        secs = time.perf_counter() - t
+        n = counts()
+        path = os.path.join(tmp, f"profile_{i}", "trace", profiling.TRACE_FILE)
+        rows, span = profiling.device_times(path)
+        busy = sum(ms for ms, _ in rows.values())
+        out["profile"][label] = {"span_ms": span, "busy_ms": busy,
+                                 "busy_share": busy / span}
+        phase("profile", f"mode=profile, {label}, B={pc.batch_size} x "
+              f"{pc.window} frames: "
+              f"{secs:.1f} s; trace {os.path.getsize(path) / 2 ** 20:.1f} MiB"
+              f", 3 steps over {span:.1f} ms, device busy {busy:.1f} ms "
+              f"({100 * busy / span:.1f}%), {len(rows)} device event names; "
+              f"launches {n} on {card}")
+        for name, (ms, c) in sorted(rows.items(), key=lambda kv: kv[1][0],
+                                    reverse=True)[:8]:
+            phase("profile", f"  {ms:8.3f} ms x{c:<4d} {name[:90]}")
+        for k in want:
+            check(any(k in name for name in rows),
+                  f"{k} among the trace's CUDA events ({label})")
+
+    # ---- (30) the SuPAIR settings on the card against the float64 plain
+    # versions at 2048 frames (posterior boxes of rendered frames): 1e-5
+    # of max(|log p|, 100), no kernel launched; the fused likelihood with
+    # the image-space claim weights raises
+    cfg, specs = model.cfg, model.specs.supair
+    p = model.params["supair"]
+    p64 = tree.map_leaves(lambda x: x.double(), p)
+    B, T = cfg.batch_size, cfg.window
+    gen = torch.Generator().manual_seed(30)
+    ep = data_lib.generate(cfg.with_overrides(seq_len=T), B, gen, dev)
+    frames = data_lib.normalize_frames(ep.frames)
+    flat = frames.reshape(B * T, cfg.img_size, cfg.img_size).contiguous()
+    out["supair_ms"] = {}
+    with torch.no_grad():
+        inf = model.infer(frames, None, generator=gen)
+        boxes = torch.cat([inf.z[..., 0:2], inf.z[..., 2:4]], -1).reshape(
+            B * T, cfg.num_obj, 4).contiguous()
+        for label, kw in (("dense", {}), ("spn_impl=matmul",
+                                          dict(spn_impl="matmul")),
+                          ("overlap_impl=image", dict(overlap_impl="image")),
+                          ("both", dict(spn_impl="matmul",
+                                        overlap_impl="image"))):
+            c = cfg.with_overrides(**kw)
+            zero()
+            got = sup_lib.likelihood(p, c, specs, flat, boxes)
+            ref = sup_lib.likelihood(p64, c.with_overrides(spn_impl="dense"),
+                                     specs, flat.double(), boxes.double())
+            err = rel_err(got, ref, 100.0)
+            ms = time_cuda(lambda: sup_lib.likelihood(p, c, specs, flat,
+                                                      boxes), iters=5)
+            out["supair_ms"][label] = ms
+            phase("supair", f"plain likelihood, {label}, {B * T} frames: max "
+                  f"|float32 - float64| / max(|ref|, 100) {err:.2e}; "
+                  f"{ms:.3f} ms a call on {card}; launches {counts()}")
+            check(err <= 1e-5, f"likelihood {label} against float64")
+            check(not any(counts().values()), f"{label} launched no kernel")
+        try:
+            sup_lib.likelihood(p, cfg.with_overrides(
+                likelihood_impl="pallas", overlap_impl="image"), specs,
+                flat, boxes)
+            refused = False
+        except ValueError:
+            refused = True
+    check(refused and not any(counts().values()),
+          "likelihood_impl=pallas with overlap_impl=image raises first")
+    phase("supair", "likelihood_impl=pallas with overlap_impl=image raises "
+          "the JAX package's ValueError before any launch")
+    return out
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        import shutil
+        for d in TEMP_DIRS:
+            shutil.rmtree(d, ignore_errors=True)
+    sys.exit(rc)

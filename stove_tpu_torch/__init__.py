@@ -3,14 +3,21 @@
 The layout mirrors the JAX package module for module, so each counterpart
 is found under the same name:
 
-  envs/      billiards physics, in-memory corpora, window batches
+  envs/      billiards, gravity and avoidance physics, corpora and their
+             files, window batches
   models/    encoder, SuPAIR (SPN likelihood), RAT-SPN, graph-net dynamics,
              STOVE (inference, ELBO, rollout)
   ops/       Gaussian algebra, glimpses, matching, the kernel wrappers
              (rollout, posterior scan, SPN, likelihood) and their builder
-  train/     checkpoints in the JAX npz layout, trainer, metrics, evaluation
+  planning/  MCTS from pixels with a learned or an oracle simulator
+  train/     checkpoints in the JAX npz layout, trainer, metrics,
+             evaluation, GIF and PNG dumps
+  utils/     torch.profiler traces
+  tools/     measurement scripts run on the card
   csrc/      hand-written CUDA C++ kernels, built with nvcc at first use
-  main.py    `python -m stove_tpu_torch.main [mode=train|eval] ...`
+  compat.py  the reference's stateful envs and `generate_data`
+  main.py    `python -m stove_tpu_torch.main [mode=train|eval|mcts|
+             generate|viz|profile] ...`
 
 The port imports torch, numpy and the standard library only.  Parameters
 are plain nested dicts/lists of tensors with the JAX package's key names

@@ -17,7 +17,9 @@ from the run's seed; the port cannot draw threefry bits, so it takes them
 from the caller (`models/supair.py`: `run_spec_seeds`, `draw_spec_seeds`).
 
 `spn_log_prob` is the plain version: the oracle of the fused CUDA kernel
-(`ops/fused_spn.py`) and the path `spn_impl="dense"` takes.
+(`ops/fused_spn.py`) and the path `spn_impl="dense"` takes;
+`spn_log_prob_matmul` computes the same function with the leaf stage as
+three matrix products (`spn_impl="matmul"`).
 """
 
 from __future__ import annotations
@@ -102,7 +104,6 @@ def spn_log_prob(spec: SpnSpec, params: Dict[str, torch.Tensor],
                  x: torch.Tensor, weight: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """log p(x) under the RAT-SPN.  x, weight: (B, V) → (B,)."""
-    R, D = spec.num_reps, spec.depth
     mu = params["leaf_mu"]                                    # (R, V, I)
     std = _leaf_std(spec, params["leaf_raw_std"])
     z = (x[:, None, :, None] - mu[None]) / std[None]          # (B, R, V, I)
@@ -111,7 +112,52 @@ def spn_log_prob(spec: SpnSpec, params: Dict[str, torch.Tensor],
         ll = ll * weight[:, None, :, None]
     scope = torch.as_tensor(spec.scopes, dtype=ll.dtype, device=x.device)
     acts = torch.einsum("brvi,rlv->brli", ll, scope)          # (B, R, L, I)
+    return _sum_layers(spec, params, acts)
 
+
+def spn_log_prob_matmul(spec: SpnSpec, params: Dict[str, torch.Tensor],
+                        x: torch.Tensor, weight: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """`spn_log_prob` with the leaf stage as three (B, V) @ (V, R·L·I)
+    products (`spn_impl="matmul"`, spn.py:150).  Expanding each Gaussian
+    leaf's log-density in powers of x,
+
+        w·ll[b,r,v,i] = −½ (w x²)[b,v] a2[r,v,i] + (w x)[b,v] a1[r,v,i]
+                        − w[b,v] c0[r,v,i],
+        a2 = 1/σ², a1 = μ/σ², c0 = ½μ²/σ² + ½log 2π + log σ,
+
+    folds the scope sum into parameter-only matrices
+    M_k[v, (r, l, i)] = scope[r, l, v]·coef_k[r, v, i], so no (B, R, V, I)
+    tensor exists.  The same function as `spn_log_prob` up to float32
+    summation order (the expansion cancels large terms where |x − μ| ≪ σ
+    is not the case; the reference computes the products at bf16x3, here
+    in IEEE float32 with TF32 off)."""
+    R, I = spec.num_reps, spec.num_leaves
+    B, V = x.shape
+    L = spec.num_leaf_regions
+    if weight is None:
+        weight = torch.ones_like(x)
+    mu = params["leaf_mu"]                                    # (R, V, I)
+    std = _leaf_std(spec, params["leaf_raw_std"])
+    a2 = 1.0 / (std * std)
+    a1 = mu * a2
+    c0 = 0.5 * mu * mu * a2 + 0.5 * _LOG2PI + torch.log(std)
+    scope = torch.as_tensor(spec.scopes, dtype=x.dtype, device=x.device)
+
+    def fold(coef):                                           # (V, R·L·I)
+        return torch.einsum("rlv,rvi->vrli", scope, coef).reshape(
+            V, R * L * I)
+
+    acts = (-0.5 * ((weight * x * x) @ fold(a2))
+            + (weight * x) @ fold(a1) - weight @ fold(c0))
+    return _sum_layers(spec, params, acts.reshape(B, R, L, I))
+
+
+def _sum_layers(spec: SpnSpec, params: Dict[str, torch.Tensor],
+                acts: torch.Tensor) -> torch.Tensor:
+    """The sum and product layers and the root over the leaf regions'
+    log-densities acts (B, R, L, I) → (B,)."""
+    R, D = spec.num_reps, spec.depth
     for d in range(D - 1, -1, -1):
         left = acts[:, :, 0::2, :, None]
         right = acts[:, :, 1::2, None, :]

@@ -5,12 +5,18 @@ q(z_where | x) per object; the likelihood scores
 
     log p(x | z_where) = Σ_o log SPN_obj(patch_o, w_o) + log SPN_bg(x, w_bg)
 
-with patch-space overlap weights (`overlap_impl="patch"`).  Dispatch, as
+with patch-space overlap weights (`overlap_impl="patch"`) or the
+image-space ones (`"image"`, `image_weights`).  Dispatch, as
 supair.py:149-241 does: `likelihood_impl="pallas"` sends the whole
 likelihood to `fused_likelihood.likelihood_fused` (the CUDA kernel on the
-card); otherwise the glimpses and weights run as plain tensor code and the
-two SPNs go to the dense `spn.spn_log_prob` (`spn_impl="dense"`) or to
-`fused_spn.spn_log_prob_fused` (`spn_impl="pallas"`).
+card; it has the patch-space weights only, and raises the reference's
+ValueError for the image-space ones before anything runs); otherwise the
+glimpses and weights run as plain tensor code and the two SPNs go to the
+dense `spn.spn_log_prob` (`spn_impl="dense"`), to
+`spn.spn_log_prob_matmul` (`"matmul"`) or to
+`fused_spn.spn_log_prob_fused` (`"pallas"`).  The reference's fallback
+from `pallas` to `matmul` where Pallas is missing is not ported: the port
+launches its kernel or raises.
 
 The RAT-SPN region graphs come from one permutation seed per repetition
 (`spec_seeds`).  The reference draws them with `jax.random` from the run's
@@ -155,27 +161,53 @@ def likelihood(params: Dict, cfg: Config, specs: SupairSpecs,
     if cfg.likelihood_impl == "pallas":
         return fused_likelihood.likelihood_fused(cfg, specs, params, frames,
                                                  boxes)
-    if cfg.overlap_correction and O > 1 and cfg.overlap_impl != "patch":
-        raise NotImplementedError(
-            f"not ported yet: overlap_impl={cfg.overlap_impl!r} (the "
-            "image-space claim weights, supair.py:206-222); the port has the "
-            "patch-space path, overlap_impl='patch'")
     patches = glimpse.extract_glimpses(frames, boxes, P)
-    patch_w, bg_vis = fused_likelihood.patch_weights(cfg, boxes)
+    if cfg.overlap_correction and O > 1 and cfg.overlap_impl != "patch":
+        patch_w, bg_vis = image_weights(cfg, boxes)
+    else:
+        patch_w, bg_vis = fused_likelihood.patch_weights(cfg, boxes)
     if cfg.spn_impl == "pallas":
         spn_fn = fused_spn.spn_log_prob_fused
     elif cfg.spn_impl == "dense":
         spn_fn = spn_lib.spn_log_prob
+    elif cfg.spn_impl == "matmul":
+        spn_fn = spn_lib.spn_log_prob_matmul
     else:
-        raise NotImplementedError(
-            f"not ported yet: spn_impl={cfg.spn_impl!r} "
-            "(spn_log_prob_matmul); use 'dense' or 'pallas'")
+        raise ValueError(f"unknown spn_impl={cfg.spn_impl!r}: 'dense', "
+                         "'matmul' or 'pallas'")
     obj_ll = spn_fn(specs.obj, params["obj_spn"],
                     patches.reshape(B * O, P * P),
                     patch_w.reshape(B * O, P * P))
     bg_ll = spn_fn(specs.bg, params["bg_spn"], frames.reshape(B, -1),
                    bg_vis.reshape(B, -1))
     return torch.sum(obj_ll.reshape(B, O), dim=1) + bg_ll
+
+
+def image_weights(cfg: Config, boxes: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The image-space claim weights of `overlap_impl="image"`
+    (supair.py:206-222): each box's coverage mask on the pixel grid, an
+    exclusive running max over the objects (what earlier objects
+    claimed), glimpsed at each box like the frame and clipped to [0, 1];
+    the background sees 1 − the running max over all objects.  boxes
+    (B, O, 4) → (patch weights (B, O, P, P), background weights (B, H, W)).
+
+    The running max is a chain of `torch.maximum`, not `torch.cummax`:
+    where two coverages are equal (boxes that coincide), the reference's
+    `lax.cummax` splits the gradient between them, as `torch.maximum`
+    does, while `torch.cummax` sends all of it to one."""
+    B, O = boxes.shape[:2]
+    H, P = cfg.img_size, cfg.patch_size
+    cover = glimpse.box_coverage(boxes, H)                    # (B, O, H, W)
+    cums = [cover[:, 0]]
+    for o in range(1, O):
+        cums.append(torch.maximum(cums[-1], cover[:, o]))
+    cum = torch.stack(cums, 1)
+    claimed = torch.cat([torch.zeros_like(cover[:, :1]), cum[:, :-1]], 1)
+    w_all = 1.0 - glimpse.extract_glimpses(
+        claimed.reshape(B * O, H, H), boxes.reshape(B * O, 1, 4), P)[:, 0]
+    return (torch.clamp(w_all, 0.0, 1.0).reshape(B, O, P, P),
+            1.0 - cum[:, -1])
 
 
 def where_prior_logp(cfg: Config, boxes: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Measure the scan kernel's small tiles and its weight packing on the card.
 
-    python3 -m stove_tpu_torch.tools.scan_probe [--other DIR]
+    python3 -m stove_tpu_torch.tools.scan_probe [--other DIR] [--readings 4]
 
 At the three training windows -- billiards (B=256, T2=6), avoidance with
 actions and the reward head (256, 10), gravity (256, 14) -- on the trained
@@ -21,12 +21,18 @@ weights and the posterior's inputs of rendered windows:
    tensor-core core, which reads `fused_rollout.flat_params`' f32 buffer),
    timed in the same turns: other, 2, 4, 4, 2, other.
 4. On the random states of tests/test_torch_training_kernels.py::
-   test_kernels_on_ragged_batches (billiards, T2=6) at B = 1, 3, 13, 255,
-   257, 2113, three seeds each: the float32 library's, the other
+   test_kernels_on_ragged_batches (billiards, T2=6; `ragged_inputs`, one
+   `torch.Generator().manual_seed(s)` a draw) at B = 255, 1055, 2113 and
+   4096, seeds 0-23: the float32 library's, the other
    version's and the plain float32 loop's largest distance from the plain
-   loop in float64 (z, and kl relative to max(|kl|, 1)), by step.
+   loop in float64 (z, and kl relative to max(|kl|, 1)), by step; then,
+   per B, each one's spread over the draws, its average over the card
+   test's seeds 0-7 and over all draws, and the kernel's ratio to the
+   plain loop's average.
 
-Prints one line per reading, with the card's name and power limit.
+`--readings 4` runs reading 4 alone (it builds no probe library unless
+`--other` is given).  Prints one line per reading, with the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -53,6 +59,34 @@ RUNS = {"billiards": "ckpts/r4rp_bill_s32", "avoidance": "ckpts/r4a_dense_s2",
 PROBE = Path(_build.BUILD_DIR).parent / "probe"
 TILES = (2, 4)
 OTHER_TILE = 8
+RAGGED_B = (255, 1055, 2113, 4096)
+RAGGED_DRAWS = 24
+TEST_SEEDS = 8            # the card test's draws are seeds 0 .. TEST_SEEDS-1
+
+
+def ragged_inputs(cfg, B: int, seed: int, dev):
+    """The random scan inputs of the ragged card test, from
+    `torch.Generator().manual_seed(seed)`: [z1, carry means, carry stds,
+    box means, box stds] (B, 3, ...), no actions (zeros (B, 6)) and eps
+    (B, 6, 3, D)."""
+    gen = torch.Generator().manual_seed(seed)
+    D = cfg.full_state_dim
+    args = [0.1 * torch.randn((B, 3, D), generator=gen),
+            0.1 * torch.randn((B, 3, 2), generator=gen),
+            0.1 + 0.1 * torch.rand((B, 3, 2), generator=gen),
+            0.3 * torch.randn((B, 6, 3, 4), generator=gen),
+            0.05 + 0.1 * torch.rand((B, 6, 3, 4), generator=gen)]
+    eps = torch.randn((B, 6, 3, D), generator=gen)
+    return ([a.to(dev) for a in args],
+            torch.zeros((B, 6), dtype=torch.long, device=dev), eps.to(dev))
+
+
+def distances(got, ref):
+    """(max |z - ref z|, max |kl - ref kl| / max(|ref kl|, 1)) of a scan's
+    outputs against the float64 plain loop's."""
+    return ((got[0].double() - ref[0]).abs().max().item(),
+            ((got[2].double() - ref[2]).abs()
+             / ref[2].abs().clamp_min(1.0)).max().item())
 
 
 def scan_inputs(model, B: int, seed: int, dev):
@@ -164,7 +198,11 @@ def main(argv=None) -> int:
     ap.add_argument("--other", type=Path, default=None,
                     help="directory with another version's scan.cu and "
                          "dyn_core.cuh")
+    ap.add_argument("--readings", default="1,2,3,4",
+                    help="comma-separated readings to run (1-3 share one "
+                         "loop; 4)")
     args_ = ap.parse_args(argv)
+    readings = {int(r) for r in args_.readings.split(",")}
     if not torch.cuda.is_available():
         print("scan_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -179,16 +217,27 @@ def main(argv=None) -> int:
     for m, model in models.items():
         kcfg = fr.kernel_config(model.cfg, model.params["dynamics"])
         for dt in fr.DTYPES:
-            for tile in TILES:
-                jobs[f"{m}_{dt}_{tile}"] = (_build.CSRC,
-                                            fs.job(kcfg, dt, tile)[1])
+            if readings & {1, 2, 3}:
+                for tile in TILES:
+                    jobs[f"{m}_{dt}_{tile}"] = (_build.CSRC,
+                                                fs.job(kcfg, dt, tile)[1])
             if args_.other is not None:
                 jobs[f"{m}_{dt}_other"] = (args_.other,
                                            fs.job(kcfg, dt, OTHER_TILE)[1])
     libs = build(jobs)
     for name, (_, report) in libs.items():
         print(f"build {name}: {report}", flush=True)
+    if readings & {1, 2, 3}:
+        tile_readings(models, libs, args_.other is not None, dev)
+    if 4 in readings:
+        ragged_reading(models["billiards"], libs, args_.other is not None,
+                       dev)
+    return 0
 
+
+def tile_readings(models, libs, other: bool, dev) -> None:
+    """1-3: every scan library's tiles, the weight packing, the other
+    version, at the three training windows."""
     for i, (m, model) in enumerate(models.items()):
         dyn = model.params["dynamics"]
         kcfg = fr.kernel_config(model.cfg, dyn)
@@ -203,7 +252,7 @@ def main(argv=None) -> int:
                   f"({bufs['this'].numel()} bytes)", flush=True)
             names = [f"{m}_{dt}_{t}" for t in TILES]
             turns = names + names[::-1]
-            if args_.other is not None:
+            if other:
                 turns = [f"{m}_{dt}_other"] + turns + [f"{m}_{dt}_other"]
             ms = {}
             with torch.no_grad():
@@ -223,43 +272,57 @@ def main(argv=None) -> int:
                           + f" ms; {distance(got, dyn, kcfg, args, acts, eps, dt)}",
                           flush=True)
 
-    # 4. float32 against float64 on the ragged card test's random states
-    model = models["billiards"]
+
+def ragged_reading(model, libs, other: bool, dev) -> None:
+    """4. float32 against float64 on the ragged card test's random states"""
     cfg, dyn = model.cfg, model.params["dynamics"]
     d64 = ckpt.params_from_numpy(dyn, dev, torch.float64)
-    D = cfg.full_state_dim
-    for B in (1, 3, 13, 255, 257, 2113):
-        for seed in range(3):
-            gen = torch.Generator().manual_seed(100 * B + seed)
-            args = [0.1 * torch.randn((B, 3, D), generator=gen),
-                    0.1 * torch.randn((B, 3, 2), generator=gen),
-                    0.1 + 0.1 * torch.rand((B, 3, 2), generator=gen),
-                    0.3 * torch.randn((B, 6, 3, 4), generator=gen),
-                    0.05 + 0.1 * torch.rand((B, 6, 3, 4), generator=gen)]
-            args = [a.to(dev) for a in args]
-            acts = torch.zeros((B, 6), dtype=torch.int32, device=dev)
-            eps = torch.randn((B, 6, 3, D), generator=gen).to(dev)
+    for B in RAGGED_B:
+        dist = {}
+        for seed in range(RAGGED_DRAWS):
+            args, acts, eps = ragged_inputs(cfg, B, seed, dev)
             with torch.no_grad():
                 outs = {"kernel": fs.scan_kernel(dyn, cfg, *args, acts, eps,
                                                  dtype="float32"),
                         "plain float32": fs.scan_reference(dyn, cfg, *args,
                                                            acts, eps)}
-                if args_.other is not None:
+                if other:
                     outs["other"] = launch(libs["billiards_float32_other"][0],
                                            fr.flat_params(dyn, cfg), cfg,
-                                           args, acts, eps)
+                                           args, acts.to(torch.int32), eps)
                 ref = fs.scan_reference(d64, cfg, *[a.double() for a in args],
                                         acts, eps.double())
             line = []
             for k, x in outs.items():
                 by_step = (x[0].double() - ref[0]).abs().amax(dim=(0, 2, 3))
-                kl = ((x[2].double() - ref[2]).abs()
-                      / ref[2].abs().clamp_min(1.0)).max().item()
-                line.append(f"{k} z {by_step.max().item():.2e} (by step "
+                dz, dkl = distances(x, ref)
+                dist.setdefault(k, []).append((dz, dkl))
+                line.append(f"{k} z {dz:.3e} (by step "
                             + " ".join(f"{v:.1e}" for v in by_step.tolist())
-                            + f"), kl rel {kl:.1e}")
+                            + f"), kl rel {dkl:.3e}")
             print(f"float64 B={B} seed {seed}: " + "; ".join(line), flush=True)
-    return 0
+        plain = dist["plain float32"]
+        for k, v in dist.items():
+            parts = []
+            for i, what in enumerate(("z", "kl")):
+                xs = [d[i] for d in v]
+                ps = [d[i] for d in plain]
+                m8, p8 = (sum(xs[:TEST_SEEDS]) / TEST_SEEDS,
+                          sum(ps[:TEST_SEEDS]) / TEST_SEEDS)
+                ma, pa = sum(xs) / len(xs), sum(ps) / len(ps)
+                per = max(a / b for a, b in zip(xs, ps) if b > 0) \
+                    if any(ps) else float("nan")
+                parts.append(
+                    f"{what}: {spread(xs)}, mean over seeds 0-"
+                    f"{TEST_SEEDS - 1} {m8:.3e} ({m8 / p8:.3f}x the plain "
+                    f"loop's), over {len(xs)} draws {ma:.3e} "
+                    f"({ma / pa:.3f}x), largest per-draw ratio {per:.3f}")
+            print(f"ragged B={B} {k}: " + "; ".join(parts), flush=True)
+
+
+def spread(xs):
+    xs = sorted(xs)
+    return f"min {xs[0]:.3e} median {xs[len(xs) // 2]:.3e} max {xs[-1]:.3e}"
 
 
 if __name__ == "__main__":

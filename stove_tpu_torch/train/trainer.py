@@ -18,11 +18,16 @@ Differences from the reference, all deliberate:
   the CPU (seeded cfg.seed + 3).  A resumed run cannot continue the JAX
   PRNG key stored in the checkpoint; it reseeds both generators from
   cfg.seed and the restored step, and says so.
-* The corpora are generated in memory from the seed (train: cfg.seed,
-  test: cfg.seed + 1, as the reference's `ensure_dataset` keys them);
-  nothing is read from or written to `data_dir`.
-* GIF dumps (`_dump_gif`, train/visualize.py) are not ported; evaluation
-  prints a one-line note instead, once per run.
+* The corpora are read through `ensure_dataset`, as the reference's
+  are: from `data_dir` under the JAX package's file names, or generated
+  from the seed (train: cfg.seed, test: cfg.seed + 1) and written there.
+  A file either package wrote is read by both; the two draw different
+  sequences at one seed.
+* The GIF dump after each evaluation (`_dump_gif`) writes
+  `<run_dir>/rollout_ep%04d.gif` with the port's own GIF encoder
+  (train/visualize.py, no Pillow).  The reference catches every exception
+  there; the port catches only a failure to write the file, so that a
+  kernel's failure is not swallowed.
 """
 
 from __future__ import annotations
@@ -54,6 +59,16 @@ COMMITTED_RUNS = os.path.join(os.path.dirname(os.path.dirname(
 def _inside(path: str, root: str) -> bool:
     path, root = os.path.realpath(path), os.path.realpath(root)
     return os.path.commonpath([path, root]) == root
+
+
+def check_run_dir(run_dir: str) -> str:
+    """`run_dir`, unless it lies in the committed checkpoint store, which
+    runs read and never write: then ValueError."""
+    if _inside(run_dir, COMMITTED_RUNS):
+        raise ValueError(f"run directory {run_dir} lies in the committed "
+                         f"checkpoint store {COMMITTED_RUNS}; pass "
+                         "run_dir=<elsewhere>")
+    return run_dir
 
 
 def anneal_steps(cfg: Config) -> int:
@@ -161,15 +176,13 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.run_dir = run_dir or os.path.join(cfg.run_dir, cfg.run_name)
-        if not cfg.nolog and _inside(self.run_dir, COMMITTED_RUNS):
-            raise ValueError(f"run directory {self.run_dir} lies in the "
-                             f"committed checkpoint store {COMMITTED_RUNS}; "
-                             "pass run_dir=<elsewhere>")
+        if not cfg.nolog:
+            check_run_dir(self.run_dir)
         self.logger = MetricsLogger(None if cfg.nolog else self.run_dir)
 
         dev = self.device
-        self.train_ep = data_lib.split(cfg, "train", dev)
-        self.test_ep = data_lib.split(cfg, "test", dev)
+        self.train_ep = data_lib.ensure_dataset(cfg, "train", dev)
+        self.test_ep = data_lib.ensure_dataset(cfg, "test", dev)
         if (cfg.action_conditioned and cfg.reward_balanced_loss
                 and cfg.reward_pos_rate == 0.0):
             rate = float(torch.mean(self.train_ep.rewards))
@@ -190,7 +203,6 @@ class Trainer:
         self.opt_state = self.optimizer.init(self.params)
         self.step = 0
         self._seed_generators(cfg.seed)
-        self._gif_noted = False
         self._baselines_logged = False
         # every step's metrics (0-d tensors) of the latest epoch; the log
         # keeps only the last step's, as the reference's does
@@ -301,10 +313,42 @@ class Trainer:
                   f"{epoch}: recognition/tracking handoff failure signature "
                   "— this seed is unlikely to recover; consider restarting "
                   "with a different seed", flush=True)
-        if not cfg.nolog and not self._gif_noted:
-            self._gif_noted = True
-            print("[viz] gif dumps are not ported yet; skipped", flush=True)
+        if not cfg.nolog:
+            try:
+                self._dump_gif(epoch)
+            except OSError as e:       # a full disk must not end training
+                print(f"[viz] gif dump failed: {e}", flush=True)
         return flat
+
+    @torch.no_grad()
+    def _dump_gif(self, epoch: int) -> str:
+        """true | reconstruction→prediction GIF of the first test sequence
+        (trainer.py:347): the posterior over cfg.window frames (noise from
+        a generator seeded as this evaluation's), then a mean rollout of
+        cfg.eval_rollout_steps from its last mean (the rollout kernel on
+        the card); the model panel shows the posterior means for t <
+        window, then the prediction.  Written to
+        `<run_dir>/rollout_ep%04d.gif`."""
+        from stove_tpu_torch.train import visualize as viz
+
+        cfg = self.cfg
+        t_cond, t_pred = cfg.window, cfg.eval_rollout_steps
+        frames = data_lib.normalize_frames(self.test_ep.frames[:1, :t_cond])
+        actions = self.test_ep.actions[:1]
+        gen = torch.Generator().manual_seed(cfg.seed + 7919 + self.step)
+        inf = self.model.infer(frames, actions[:, :t_cond], generator=gen)
+        states, _ = self.model.rollout(
+            inf.z_mean[:, -1], actions[:, t_cond - 1:t_cond - 1 + t_pred],
+            t_pred, gen, sample=False)
+        model_pos = torch.cat([inf.pos_mean[0], states[0, :, :, 2:4]], 0)
+        model_size = torch.cat([inf.z_mean[0, :, :, 0:2],
+                                states[0, :, :, 0:2]], 0)
+        true = data_lib.normalize_frames(
+            self.test_ep.frames[0, :t_cond + t_pred])
+        return viz.dump_rollout_gif(cfg, self.run_dir, f"ep{epoch:04d}",
+                                    true.cpu().numpy(),
+                                    model_pos.cpu().numpy(),
+                                    pred_sizes=model_size.cpu().numpy())
 
     def train(self) -> Dict[str, float]:
         cfg = self.cfg

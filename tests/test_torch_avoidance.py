@@ -323,7 +323,7 @@ def test_eval_matches_jax_on_its_noise(run, eval_corpus, capsys):
                                    err_msg=k)
 
 
-def test_eval_band_from_the_jax_package(run, eval_corpus, capsys):
+def test_eval_band_from_the_jax_package(run, eval_corpus, capsys, tmp_path):
     """The JAX package's float32 metrics on the port's test corpus over
     32 posterior draws set the band (their range, widened by half its
     width); the port's own CPU mode=eval, another draw of the same
@@ -335,7 +335,8 @@ def test_eval_band_from_the_jax_package(run, eval_corpus, capsys):
     for seed in range(32):
         m = metrics(jparams, jax.random.key(seed))
         rows.append({k: float(m[k]) for k in EVAL_BAND})
-    port = tmain.run_eval(cfg.with_overrides(restore=RUN), "cpu")
+    port = tmain.run_eval(cfg.with_overrides(restore=RUN,
+                                             data_dir=str(tmp_path)), "cpu")
     with capsys.disabled():
         for k in EVAL_BAND:
             v = np.array([r[k] for r in rows])
@@ -353,26 +354,30 @@ def test_eval_band_from_the_jax_package(run, eval_corpus, capsys):
 
 # ---------------------------------------------------------------- repairs
 
-def test_bfloat16_compute_dtype_raises():
+def test_bfloat16_compute_dtype_raises(tmp_path):
     cfg = Config().debug_shrunk().with_overrides(compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         StoveModel(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         tmain.main(["preset=stove_billiards", "debug=true",
-                    "compute_dtype=bfloat16", "device=cpu", "nolog=true"])
+                    "compute_dtype=bfloat16", "device=cpu", "nolog=true",
+                    f"data_dir={tmp_path}"])
 
 
 def test_eval_corpus_is_the_trainers_test_split(tmp_path, monkeypatch):
     """mode=eval scores the corpus the Trainer evaluates on: cfg.num_test
-    sequences from seed + 1."""
+    sequences from seed + 1, which the Trainer wrote to data_dir and
+    mode=eval reads from there (`ensure_dataset`)."""
     cfg = Config().debug_shrunk().with_overrides(
-        run_dir=str(tmp_path), nolog=True, num_test=5, seq_len=20)
+        run_dir=str(tmp_path), nolog=True, num_test=5, seq_len=20,
+        data_dir=str(tmp_path / "data"))
     trainer = Trainer(cfg, device="cpu")
     assert trainer.test_ep.frames.shape[0] == 5
     seen = []
-    real_split = tdata.split
-    monkeypatch.setattr(tdata, "split", lambda c, name, device:
-                        seen.append(real_split(c, name, device)) or seen[-1])
+    real_ensure = tdata.ensure_dataset
+    monkeypatch.setattr(tdata, "ensure_dataset", lambda c, name, device:
+                        seen.append(real_ensure(c, name, device)) or seen[-1])
+    monkeypatch.setattr(tdata, "split", None)       # read, not generated
     monkeypatch.setattr(StoveModel, "from_run",
                         classmethod(lambda cls, *a, **k: trainer.model))
     tmain.run_eval(cfg.with_overrides(restore=str(tmp_path)), "cpu")

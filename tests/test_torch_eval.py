@@ -81,9 +81,10 @@ def test_longhorizon_mean_metrics_match_jax(setup):
     _close(got, want, rtol=1e-4, atol=1e-6)
 
 
-def test_main_eval_on_cpu_prints_the_jax_keys(capsys):
+def test_main_eval_on_cpu_prints_the_jax_keys(capsys, tmp_path):
     assert tmain.main([f"restore={RUN}", "mode=eval", "device=cpu",
-                       "eval_batch=4", "seq_len=90"]) == 0
+                       "eval_batch=4", "seq_len=90",
+                       f"data_dir={tmp_path}"]) == 0
     keys = {line.split(":")[0] for line in capsys.readouterr().out.splitlines()
             if ":" in line}
     want = {"mse_per_step", "mse_mean", "mse_final", "detect_mse",
@@ -96,9 +97,16 @@ def test_main_eval_on_cpu_prints_the_jax_keys(capsys):
 
 
 def test_other_modes_are_not_ported():
-    for mode in ("viz", "generate", "profile"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            tmain.main([f"restore={RUN}", f"mode={mode}", "device=cpu"])
+    """Every mode of the JAX CLI is served (tests/test_torch_profile.py
+    drives generate, viz and profile); the CLI refuses only a mode the JAX
+    CLI does not have, and mode=viz, as mode=eval, without a run to
+    restore."""
+    with pytest.raises(SystemExit, match="unknown mode 'render'"):
+        tmain.main([f"restore={RUN}", "mode=render", "device=cpu"])
+    for mode in ("viz", "eval"):
+        with pytest.raises(SystemExit, match=f"mode={mode} requires restore"):
+            tmain.main(["preset=stove_billiards", f"mode={mode}",
+                        "device=cpu"])
 
 
 def test_entry_points_need_an_explicit_cpu(monkeypatch):

@@ -73,7 +73,7 @@ def test_eval_matches_jax_on_its_noise(run, eval_corpus, capsys):
                                    err_msg=k)
 
 
-def test_eval_band_from_the_jax_package(run, eval_corpus, capsys):
+def test_eval_band_from_the_jax_package(run, eval_corpus, capsys, tmp_path):
     """The JAX package's float32 metrics on the port's test corpus over 16
     posterior draws set chip_smoke.GRAV_EVAL_BAND (their range, widened by
     half its width); the port's own CPU mode=eval, one more draw of the
@@ -85,7 +85,8 @@ def test_eval_band_from_the_jax_package(run, eval_corpus, capsys):
     rows = [{k: float(v) for k, v in metrics(jparams,
                                              jax.random.key(s)).items()}
             for s in range(16)]
-    port = tmain.run_eval(cfg.with_overrides(restore=RUN), "cpu")
+    port = tmain.run_eval(cfg.with_overrides(restore=RUN,
+                                             data_dir=str(tmp_path)), "cpu")
     with capsys.disabled():
         for k in band:
             v = np.array([r[k] for r in rows])

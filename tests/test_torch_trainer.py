@@ -110,7 +110,8 @@ def _jax_template(jc):
 
 def test_port_checkpoint_restores_in_jax(tmp_path):
     tc = tmain.build_config(["preset=stove_billiards", *SHRUNK,
-                             f"run_dir={tmp_path}"])[0]
+                             f"run_dir={tmp_path}",
+                             f"data_dir={tmp_path / 'data'}"])[0]
     tr = ttrainer.Trainer(tc, device="cpu")
     tr.train_epoch(0)
     tr.train_epoch(1)
@@ -164,7 +165,7 @@ def test_restore_of_the_committed_run():
 def test_debug_train_run_through_the_entry_point(tmp_path):
     argv = ["preset=stove_billiards", *SHRUNK, "scan_impl=pallas",
             "likelihood_impl=pallas", "eval_every=1", f"run_dir={tmp_path}",
-            "device=cpu"]
+            f"data_dir={tmp_path / 'data'}", "device=cpu"]
     assert tmain.main(argv) == 0
     run = tmp_path / "stove_bil"
     rows = [json.loads(ln) for ln in open(run / "metrics.jsonl")]
@@ -178,6 +179,8 @@ def test_debug_train_run_through_the_entry_point(tmp_path):
     assert {r["kind"] for r in rows} == {"train", "eval", "baseline"}
     assert (run / "ckpt_00000004.npz").exists()
     assert json.load(open(run / "spn_seeds.json"))["obj"]
+    assert {p.name for p in run.glob("*.gif")} == {"rollout_ep0000.gif",
+                                                  "rollout_ep0001.gif"}
 
 
 def test_trainer_refuses_what_it_does_not_do(tmp_path):

@@ -24,6 +24,7 @@ from stove_tpu_torch import tree
 from stove_tpu_torch.envs import data as data_lib
 from stove_tpu_torch.models import spn as spn_lib
 from stove_tpu_torch.models import stove as stove_lib
+from stove_tpu_torch.models import supair
 from stove_tpu_torch.models.bundle import StoveModel
 from stove_tpu_torch.ops import _build
 from stove_tpu_torch.ops import fused_likelihood as flik
@@ -31,8 +32,16 @@ from stove_tpu_torch.ops import fused_rollout as fr
 from stove_tpu_torch.ops import fused_scan as fscan
 from stove_tpu_torch.ops import fused_spn as fspn
 from stove_tpu_torch.ops import glimpse
+from stove_tpu_torch.tools import scan_probe
 
 RUN = "ckpts/r4rp_bill_s32"
+# every draw of test_kernels_on_ragged_batches: the scan kernel's distance
+# from float64, z and kl relative.  tools/scan_probe.py reading 4 over 24
+# draws at each of B = 255, 1055, 2113, 4096 (NVIDIA H100 80GB HBM3,
+# 700 W): the kernel's largest 1.57e-3 and 4.1e-5, the plain float32
+# loop's own 2.60e-3 and 5.8e-5; the ceilings are 1.5x the plain loop's.
+RAGGED_Z_CEIL = 4e-3
+RAGGED_KL_CEIL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -223,6 +232,33 @@ def test_likelihood_kernel_matches_float64_plain(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("setting", [dict(spn_impl="matmul"),
+                                     dict(overlap_impl="image"),
+                                     dict(overlap_impl="image",
+                                          spn_impl="matmul")],
+                         ids=["matmul", "image", "image-matmul"])
+def test_supair_settings_match_float64_plain(card, setting):
+    """The plain likelihood's settings without a kernel on the card:
+    `spn_impl="matmul"` (three float32 products a SPN, TF32 off) and the
+    image-space claim weights, on the trained model's frames and
+    posterior boxes, against the dense plain version in float64 with the
+    same claim weights: 1e-5 of max(|log p|, 100), the SPN kernels'
+    limit.  Nothing launches a kernel."""
+    model, frames, boxes, _ = card
+    cfg = model.cfg.with_overrides(**setting)
+    specs, p = model.specs.supair, model.params["supair"]
+    flat = frames.reshape(-1, 32, 32)
+    before = (fspn.launch_kernel.launches, flik.launch_kernel.launches)
+    with torch.no_grad():
+        got = supair.likelihood(p, cfg, specs, flat, boxes)
+        ref = supair.likelihood(_f64(p), cfg.with_overrides(spn_impl="dense"),
+                                specs, flat.double(), boxes.double())
+    assert (fspn.launch_kernel.launches, flik.launch_kernel.launches) == before
+    err = (got.double() - ref).abs() / ref.abs().clamp_min(100.0)
+    assert err.max().item() <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kw", [{}, dict(velocity_obs_full_std=False),
                                 dict(velocity_obs="filtered")],
                          ids=["full_std", "t_frame_std", "filtered"])
@@ -330,46 +366,41 @@ def test_kernels_on_ragged_batches(card, B):
     """Batches that do not fill the last block -- the SPN's and likelihood's
     8-sample tile, the scan's small tile (B < 2112) and its 16-sample tile
     (2113) -- and the likelihood without the overlap correction (the
-    scan's float32 library).  The fixture's 256 frames
-    repeat past B=256.  On these random states the trained map amplifies
-    float32 rounding over the 6 steps: beyond a dozen samples the plain
-    float32 loop's own distance from float64 passes 1e-4
-    (tools/scan_probe.py), so the scan is held, as chip_smoke.py phase (2)
-    holds long rollouts, to 1e-4 or twice that distance where it is larger
-    (kl: 2e-5 relative or twice the plain loop's); phases (8) and (17) hold
-    the posterior's own inputs at B=255 and 2113 to 1e-4."""
-    model, frames, _, gen = card
+    scan's float32 library), over eight draws: seeds 0-7, each draw from
+    its own `torch.Generator().manual_seed(s)` (the SPN weights from one,
+    the scan's random states and eps, `scan_probe.ragged_inputs`, from
+    another), so that no draw depends on test order.  The fixture's 256
+    frames repeat past B=256.  On these random states the trained map
+    amplifies float32 rounding over the 6 steps, and the plain float32
+    loop's own distance from float64 spreads several-fold between draws
+    (tools/scan_probe.py reading 4), so the scan is held as the rollout
+    test is: its distance from float64 averaged over the draws (z; kl
+    relative to max(|kl|, 1)) at most twice the plain loop's average, or
+    1e-4 (kl: 2e-5) where that is larger; and on every draw below
+    RAGGED_Z_CEIL and RAGGED_KL_CEIL.  Phases (8) and (17) of
+    chip_smoke.py hold the posterior's own inputs at B=255 and 2113 to
+    1e-4."""
+    model, frames, _, _ = card
     cfg = model.cfg
-    _hold_spn_and_likelihood(card, B, gen)
-    with torch.no_grad():
-        D = cfg.full_state_dim
-        args = [0.1 * torch.randn((B, 3, D), generator=gen),
-                0.1 * torch.randn((B, 3, 2), generator=gen),
-                0.1 + 0.1 * torch.rand((B, 3, 2), generator=gen),
-                0.3 * torch.randn((B, 6, 3, 4), generator=gen),
-                0.05 + 0.1 * torch.rand((B, 6, 3, 4), generator=gen)]
-        args = [a.to(frames.device) for a in args]
-        acts = torch.zeros((B, 6), dtype=torch.long, device=frames.device)
-        eps = torch.randn((B, 6, 3, D), generator=gen).to(frames.device)
-        got = fscan.scan_kernel(model.params["dynamics"], cfg, *args, acts,
-                                eps, dtype="float32")
-        ref = fscan.scan_reference(_f64(model.params["dynamics"]), cfg,
-                                   *[a.double() for a in args], acts,
-                                   eps.double())
-        plain = fscan.scan_reference(model.params["dynamics"], cfg, *args,
-                                     acts, eps)
-
-    def z_err(x):
-        return (x[0].double() - ref[0]).abs().max().item()
-
-    def kl_err(x):
-        return ((x[2].double() - ref[2]).abs()
-                / ref[2].abs().clamp_min(1.0)).max().item()
-
-    assert z_err(got) <= max(1e-4, 2 * z_err(plain)), (z_err(got),
-                                                      z_err(plain))
-    assert kl_err(got) <= max(2e-5, 2 * kl_err(plain)), (kl_err(got),
-                                                        kl_err(plain))
+    dist = {"kernel": [], "plain": []}
+    for s in range(scan_probe.TEST_SEEDS):
+        _hold_spn_and_likelihood(card, B, torch.Generator().manual_seed(s))
+        args, acts, eps = scan_probe.ragged_inputs(cfg, B, s, frames.device)
+        with torch.no_grad():
+            got = fscan.scan_kernel(model.params["dynamics"], cfg, *args,
+                                    acts, eps, dtype="float32")
+            ref = fscan.scan_reference(_f64(model.params["dynamics"]), cfg,
+                                       *[a.double() for a in args], acts,
+                                       eps.double())
+            plain = fscan.scan_reference(model.params["dynamics"], cfg,
+                                         *args, acts, eps)
+        k = scan_probe.distances(got, ref)
+        dist["kernel"].append(k)
+        dist["plain"].append(scan_probe.distances(plain, ref))
+        assert k[0] <= RAGGED_Z_CEIL and k[1] <= RAGGED_KL_CEIL, (s, k)
+    mean = {key: np.mean(v, axis=0) for key, v in dist.items()}
+    assert mean["kernel"][0] <= max(1e-4, 2 * mean["plain"][0]), dist
+    assert mean["kernel"][1] <= max(2e-5, 2 * mean["plain"][1]), dist
 
 
 @pytest.mark.cuda
