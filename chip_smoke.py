@@ -25,7 +25,11 @@ leaves (`mcts_rollout_impl=pallas`) and times every rollout library in
 both precisions, then drives the CLI's last modes -- `mode=generate`
 (and training from its files), `mode=viz` of the billiards and the
 avoidance model, `mode=profile` -- and holds the SuPAIR settings
-`spn_impl=matmul` and `overlap_impl=image` against float64.  Every phase
+`spn_impl=matmul` and `overlap_impl=image` against float64; then
+`compute_dtype=bfloat16` on every path (the rollout library's third
+precision, "dense_bf16", against its plain version, bf16 eval of the three
+models, bf16 training) and data parallelism on the one card (NCCL at world
+1, two ranks over gloo).  Every phase
 that reads a corpus gets a fresh `data_dir`.  Training with `scan_impl=pallas` runs the scan's bf16
 library forward, as the JAX package's `_scan_pallas` does.  One line per
 phase, with the seconds since start:
@@ -229,6 +233,41 @@ phase, with the seconds since start:
                   the dense float32 version; likelihood_impl=pallas with
                   overlap_impl=image raises before any launch
 
+  (31) dense-bf16 the rollout library at compute_dtype=bfloat16's precision
+                  (-DSTOVE_BF16=2: the attention column and the reward
+                  head's geometry rows and last columns rounded too)
+                  against the plain version at "dense_bf16" by (24)'s
+                  criterion, from posterior states: billiards and gravity
+                  at the eval's (100, 8), avoidance at the planner's (576,
+                  10) with random actions (and rewards); the TPU kernel's
+                  variant beside it (its median distance from the dense
+                  plain version over the bf16 - f32 one, steps 1-4); each
+                  timed in turns with the float32 and the variant's
+                  libraries beside the plain version and the bf16 bound;
+                  the gravity model's open-loop head by the implied std
+                  (median relative error <= 1e-2), timed at (32, 80)
+                  sampled beside float32's
+  (32) bf16-eval  mode=eval at compute_dtype=bfloat16 of ckpts/r4rp_bill_s32,
+                  ckpts/r4rp_grav_s32 and ckpts/r4a_dense_s2: rollouts
+                  through the dense bf16 libraries only, mse_final finite
+                  and below the constant-velocity baseline, billiards' and
+                  gravity's inside BF16_EVAL_BANDS (the JAX package's bf16
+                  values on the port's corpus)
+  (33) bf16-train preset=stove_billiards compute_dtype=bfloat16 from scratch
+                  at batch 256 (only the corpus cut): 2 warm-up + 6 STOVE
+                  steps through the scan and likelihood kernels and one
+                  evaluation; finite losses, the last logged STOVE loss
+                  below the first; the step against float32's in turns;
+                  one batch's gradients, kernel path against the plain
+                  path with its semantics, by phase (9)'s limits (the
+                  floor doubled: at bf16 it is rounding flips)
+  (34) parallel   dryrun_multichip (stove_tpu_torch/parallel/dryrun.py) with
+                  NCCL at world size 1: equal bit for bit to the step
+                  without a process group; two ranks over gloo sharing
+                  the card when gloo takes CUDA tensors (NCCL refuses two
+                  ranks on one device): the sharded loss within rel 1e-4
+                  of one device's; mesh_shape=(2,) in one process raises
+
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernel table (JSON; one entry per library,
 its launches counted on the main paths -- every run through the entry
@@ -278,6 +317,14 @@ GRAV_EVAL_BAND = {"mse_final": (0.0044, 0.0080),
 GRAV_RESUME_BAND = {"elbo": (1110.0, 1163.0), "kl": (-21.6, -8.0),
                     "overshoot_loss": (0.088, 0.171),
                     "open_sigma_nll": (-56.7, 53.2)}
+# mode=eval of RUN and GRAV at compute_dtype=bfloat16 on the card (phase
+# (32)) must land here: the range of the JAX package's mse_final at
+# compute_dtype=bfloat16 on the port's test corpus over the posterior draws
+# of jax.random.key(0..15), widened by half its width on each side
+# (tests/test_torch_compute_bf16.py::test_bf16_eval_band_from_the_jax_package
+# recomputes the draws and checks these bands on the CPU).
+BF16_EVAL_BANDS = {"billiards": {"mse_final": (0.0070, 0.0112)},
+                   "gravity": {"mse_final": (0.0046, 0.0073)}}
 BUDGET_S = 240.0          # start the optional B=65536 timing only before this
 # the scan's velocity modes besides the trained models' (mode 2), held with
 # random weights in phase (8) and timed in phase (26)
@@ -395,7 +442,10 @@ def main() -> int:
     for c, op, dts, tiles in ((cfg, False, fr.DTYPES, (16, 4)),
                               (acfg, False, fr.DTYPES, (16, 4)),
                               (gcfg, True, fr.DTYPES, (16, 4)),
-                              (ocfg, True, ("float32",), (4,))):
+                              (ocfg, True, ("float32",), (4,)),
+                              (cfg, False, ("dense_bf16",), (4,)),
+                              (acfg, False, ("dense_bf16",), (4,)),
+                              (gcfg, True, ("dense_bf16",), (4,))):
         for dt in dts:
             for tile in tiles:
                 if (c, op, dt, tile) == (gcfg, True, "bfloat16", 4):
@@ -575,6 +625,7 @@ def main() -> int:
                 "sample": True})
     five = fifth_slice(card, dev, model, z_post)
     six = sixth_slice(card, dev, model)
+    seven = seventh_slice(card, dev, model, z_post, five.pop("posteriors"))
 
     # one entry per kernel library: the TPU kernel it replaces, its
     # launches on the main paths (every run through the entry points, and
@@ -636,7 +687,10 @@ def main() -> int:
         fr.job(acfg, False, "bfloat16", 4), fr.job(gcfg, True, "float32", 4),
         fscan.job(cfg, "bfloat16"), fscan.job(acfg, "bfloat16"),
         fscan.job(gcfg, "bfloat16"), fr.job(cfg, False, "bfloat16", 16),
-        fspn.job(sspecs.obj), fspn.job(sspecs.bg), flik.job(cfg, sspecs)))
+        fspn.job(sspecs.obj), fspn.job(sspecs.bg), flik.job(cfg, sspecs),
+        fr.job(cfg, False, "dense_bf16", 4),
+        fr.job(acfg, False, "dense_bf16", 4),
+        fr.job(gcfg, True, "dense_bf16", 4)))
         and all(MAIN_PATH.get(lib_key(j) + " pack", 0) > 0 for j in (
             fspn.job(sspecs.obj), fspn.job(sspecs.bg),
             flik.job(cfg, sspecs))),
@@ -650,6 +704,7 @@ def main() -> int:
         "gravity_eval_sampled": four["grav_eval_sampled"],
         "gravity_resume": four["grav_resume"],
         "rollout_timing": five["timing"], "sixth_slice": six,
+        "seventh_slice": seven,
         "throughput_ms": {"float32": times[B], "bfloat16": times["bf16"]}},
         default=str))
     print(card)
@@ -845,10 +900,10 @@ def bound(flops: float, nbytes: float, peak: float = F32_PEAK):
 
 def rollout_bound(flops: float, nbytes: float, dtype: str):
     """The rollout library's bound: its matmul operations at their type's
-    peak -- bf16 on the tensor cores, f32 on the CUDA cores (the float32
-    library's FMA) -- or its bytes."""
+    peak -- bf16 on the tensor cores (both bf16 precisions), f32 on the
+    CUDA cores (the float32 library's FMA) -- or its bytes."""
     return bound(flops, nbytes,
-                 BF16_PEAK if dtype == "bfloat16" else F32_PEAK)
+                 F32_PEAK if dtype == "float32" else BF16_PEAK)
 
 
 def spn_flops(spec) -> float:
@@ -2452,7 +2507,7 @@ def implied_open_std(name, dyn, cfg, z0, dtype, prep, lim):
     from stove_tpu_torch.models import dynamics as dyn_lib
     from stove_tpu_torch.ops import fused_rollout as fr
     temp = cfg.rollout_sigma_temp
-    d = dyn_lib.apply(dyn, cfg, z0, bf16=dtype == "bfloat16")
+    d = dyn_lib.apply(dyn, cfg, z0, None, dtype)
     mean_k, _ = fr.launch_kernel(prep, cfg, z0, 1, False, 0, None, False,
                                  dtype)
     s_f, _ = fr.launch_kernel(prep, cfg, z0, 1, True, 29, None, False, dtype)
@@ -2766,6 +2821,7 @@ def fifth_slice(card: str, dev, model, z_post) -> dict:
                       f"{f32_ms:.4f} ms), packing {pack[dt]:.3f} ms on {card}")
     out["timing"] = {" ".join(str(x) for x in k): v
                      for k, v in timing.items()}
+    out["posteriors"] = {"avoidance": a_post, "gravity": g_post}
     return out
 
 
@@ -2981,6 +3037,363 @@ def sixth_slice(card: str, dev, model) -> dict:
           "likelihood_impl=pallas with overlap_impl=image raises first")
     phase("supair", "likelihood_impl=pallas with overlap_impl=image raises "
           "the JAX package's ValueError before any launch")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the seventh slice: compute_dtype=bfloat16 on every path (the rollout
+# library's third precision, -DSTOVE_BF16=2) and data parallelism
+# ---------------------------------------------------------------------------
+
+DENSE = "dense_bf16"
+
+
+@contextlib.contextmanager
+def plain_scan_kernel():
+    """Within the block, the scan dispatch (`scan_impl=pallas`) runs the
+    plain loop at the kernel's precision in place of the scan kernel: the
+    plain path with the kernel path's semantics (forward in the TPU
+    kernel's bf16, backward the plain VJP at compute_dtype)."""
+    from stove_tpu_torch.ops import fused_scan as fscan
+    real = fscan.scan_kernel
+
+    def plain(dyn_params, cfg, *args, dtype="bfloat16"):
+        return fscan.scan_reference(dyn_params, cfg, *args, dtype=dtype)
+
+    fscan.scan_kernel = plain
+    try:
+        yield
+    finally:
+        fscan.scan_kernel = real
+
+
+def seventh_slice(card: str, dev, model, z_post, posts) -> dict:
+    import os
+    import tempfile
+
+    import torch
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch import tree
+    from stove_tpu_torch.envs import data as data_lib
+    from stove_tpu_torch.models import stove as stove_lib
+    from stove_tpu_torch.models.bundle import StoveModel
+    from stove_tpu_torch.ops import fused_likelihood as flik
+    from stove_tpu_torch.ops import fused_rollout as fr
+    from stove_tpu_torch.ops import fused_scan as fscan
+    from stove_tpu_torch.parallel import dryrun
+    from stove_tpu_torch.train import checkpoint as ckpt_lib
+    from stove_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    cfg = model.cfg
+    acfg, gcfg = ckpt_lib.load_config(AVOID), ckpt_lib.load_config(GRAV)
+    amodel = StoveModel.from_run(AVOID, device=dev)
+    gmodel = StoveModel.from_run(GRAV, device=dev)
+    agen = torch.Generator(device=dev).manual_seed(41)
+    rows = lambda zp, B: zp[torch.arange(B, device=dev)  # noqa: E731
+                            % zp.shape[0]].contiguous()
+    precisions = ("float32", "bfloat16", DENSE)
+
+    # ---- (31) dense-bf16: the third precision of the rollout library
+    # against its plain version ("dense_bf16", what stove.rollout computes
+    # under compute_dtype=bfloat16) by hold_bf16, at the eval's shape
+    # (100, 8) for billiards and gravity and the planner's (576, 10) with
+    # actions and the reward head for avoidance, from posterior states;
+    # the TPU kernel's bf16 variant printed beside it (how far the two bf16
+    # functions are apart); each library timed in turns with the float32
+    # and the kernel-variant libraries, beside the plain version and the
+    # bound (its work is the bf16 row's: operations at the tensor-core
+    # peak); the gravity model's open-loop head by the implied std
+    with torch.no_grad():
+        for label, mdl, c, zp, B, H in (
+                ("billiards", model, cfg, z_post, 100, 8),
+                ("avoidance", amodel, acfg, posts["avoidance"], 576, 10),
+                ("gravity", gmodel, gcfg, posts["gravity"], 100, 8)):
+            d_ = mdl.params["dynamics"]
+            z0 = rows(zp, B)
+            acts = (torch.randint(0, c.num_actions, (B, H), device=dev,
+                                  generator=agen)
+                    if c.action_conditioned else None)
+            preps = {dt: mdl.prepared_for(dt) for dt in precisions}
+            got, rew = fr.rollout(d_, c, z0, H, False, None, preps[DENSE],
+                                  acts, DENSE)
+            kv, _ = fr.rollout(d_, c, z0, H, False, None,
+                               preps["bfloat16"], acts, "bfloat16")
+            rb, rrb = fr.rollout_states_reference(d_, c, z0, H, None, acts,
+                                                  DENSE)
+            rf, rrf = fr.rollout_states_reference(d_, c, z0, H, None, acts,
+                                                  "float32")
+            torch.cuda.synchronize()
+            name = f"dense-bf16 {label} B={B}"
+            e, med, mx = hold_bf16(name, got, rb, rf)
+            fields = {"err": e, "median_ratio": med, "max_ratio": mx}
+            if c.reward_head:
+                e_r, med_r, mx_r = hold_bf16(name + " rewards",
+                                             rew[..., None], rrb[..., None],
+                                             rrf[..., None], **BF16_REWARDS)
+                fields.update(err_rewards=e_r, median_ratio_rewards=med_r,
+                              max_ratio_rewards=mx_r)
+            apart = [((kv[:, t] - rb[:, t]).abs().median()
+                      / (rb[:, t] - rf[:, t]).abs().median()).item()
+                     for t in range(4)]
+            phase("dense-bf16", f"{label}: the TPU kernel's bf16 variant vs "
+                  f"the dense bf16 plain version, median over the median "
+                  f"bf16 - f32 distance at steps 1-4: "
+                  + " ".join(f"{a:.3f}" for a in apart))
+            ms = {dt: [] for dt in precisions}
+            for dt in ("float32", "bfloat16", DENSE, DENSE, "bfloat16",
+                       "float32"):
+                ms[dt].append(time_cuda(
+                    lambda: fr.rollout(d_, c, z0, H, False, None, preps[dt],
+                                       acts, dt), iters=50, warmup=2))
+            p_ms = time_cuda(lambda: fr.rollout_states_reference(
+                d_, c, z0, H, None, acts, DENSE), iters=5)
+            flops = 2.0 * macs_per_frame(c) * B * H
+            nbytes = 4.0 * (z0.numel() * (1 + H)
+                            + (2 * B * H if c.action_conditioned else 0)
+                            ) + preps[DENSE].numel()
+            b_ms, by = rollout_bound(flops, nbytes, DENSE)
+            k_ms = {dt: sum(v) / len(v) for dt, v in ms.items()}
+            phase("dense-bf16", f"{label} B={B} H={H} (tile "
+                  f"{fr.tile_for(B)}): dense bf16 kernel {k_ms[DENSE]:.4f} "
+                  f"ms, the kernel variant {k_ms['bfloat16']:.4f} ms, "
+                  f"float32 {k_ms['float32']:.4f} ms (runs "
+                  + "; ".join(f"{dt} " + ", ".join(f"{x:.4f}" for x in v)
+                              for dt, v in ms.items())
+                  + f"), plain dense {p_ms:.3f} ms, bound {b_ms:.5f} ms "
+                  f"({by}) on {card}")
+            key = fr.job(fr.kernel_config(c, d_), False, DENSE,
+                         fr.tile_for(B))
+            was = LIBS.get(lib_key(key), {})
+            if "ms" in was:            # gravity's mean library is billiards'
+                note(key, err=max(e, was["err"]), err_gravity=e)
+            else:
+                note(key, **fields, ms=k_ms[DENSE], plain_ms=p_ms,
+                     bound=(b_ms, by), f32_ms=k_ms["float32"],
+                     bf16_variant_ms=k_ms["bfloat16"],
+                     variant_apart=apart, shape={"model": label, "B": B,
+                                                 "H": H, "sample": False})
+            out[f"dense_{label}"] = {"err": e, "ms": k_ms, "plain_ms": p_ms,
+                                     "bound_ms": b_ms, "variant_apart": apart}
+        gdyn = gmodel.params["dynamics"]
+        gp = gmodel.prepared_for(DENSE)
+        e_open = implied_open_std("dense-bf16", gdyn, gcfg,
+                                  rows(posts["gravity"], 576), DENSE, gp,
+                                  1e-2)
+        # the open-head library at its path's shape: the sampled 80-step
+        # eval rollout (32, 80), beside float32's (no path launches the
+        # kernel variant's small-tile open-head library)
+        z0 = rows(posts["gravity"], 32)
+        g_ = torch.Generator().manual_seed(31)
+        ms = {dt: [] for dt in ("float32", DENSE)}
+        for dt in ("float32", DENSE, DENSE, "float32"):
+            ms[dt].append(time_cuda(lambda: fr.rollout(
+                gdyn, gcfg, z0, 80, True, g_, gmodel.prepared_for(dt), None,
+                dt), iters=20, warmup=2))
+        noise = torch.randn((32, 80) + tuple(z0.shape[1:]), device=dev)
+        p_ms = time_cuda(lambda: fr.rollout_states_reference(
+            gdyn, gcfg, z0, 80, noise, None, DENSE), iters=3)
+        flops = 2.0 * macs_per_frame(gcfg, open_head=True) * 32 * 80
+        b_ms, by = rollout_bound(flops, 4.0 * z0.numel() * 81 + gp.numel(),
+                                 DENSE)
+        k_ms = {dt: sum(v) / len(v) for dt, v in ms.items()}
+        phase("dense-bf16", f"gravity open head (32, 80) sampled: dense bf16 "
+              f"kernel {k_ms[DENSE]:.4f} ms, float32 {k_ms['float32']:.4f} "
+              f"ms, plain dense {p_ms:.3f} ms, bound {b_ms:.5f} ms ({by}) on "
+              f"{card}")
+        note(fr.job(gcfg, True, DENSE, 4), err=e_open, ms=k_ms[DENSE],
+             plain_ms=p_ms, bound=(b_ms, by), f32_ms=k_ms["float32"],
+             shape={"model": "gravity", "B": 32, "H": 80, "sample": True})
+        out["dense_gravity_open"] = {"err": e_open, "ms": k_ms,
+                                     "plain_ms": p_ms, "bound_ms": b_ms}
+
+    # ---- (32) bf16-eval: mode=eval at compute_dtype=bfloat16 of the
+    # billiards and gravity models (mse_final inside BF16_EVAL_BANDS, the
+    # JAX package's bf16 values on the port's corpus) and of the avoidance
+    # model; each launches the dense bf16 rollout libraries and no other
+    for label, run in (("billiards", RUN), ("gravity", GRAV),
+                       ("avoidance", AVOID)):
+        ecfg, _, edev = entry.build_config(
+            [f"restore={run}", "mode=eval", "compute_dtype=bfloat16",
+             fresh_data()])
+        snap = library_counts()
+        t = time.perf_counter()
+        m = entry.run_eval(ecfg, edev)
+        torch.cuda.synchronize()
+        used = counted_since(snap)
+        mse, lin = m["mse_final"].item(), m["linear_mse_final"].item()
+        phase("bf16-eval", f"{run} compute_dtype=bfloat16: "
+              f"{time.perf_counter() - t:.2f} s, mse_final {mse:.6f}, "
+              f"detect_mse {m['detect_mse'].item():.6g}, linear baseline "
+              f"{lin:.6f}; launches {used}")
+        rolled = [k for k in used if k.startswith("rollout.cu")]
+        check(rolled and all("-DSTOVE_BF16=2" in k for k in rolled),
+              f"bf16 eval of {run} rolled out through the dense bf16 "
+              "libraries only")
+        check(math.isfinite(mse) and mse < lin, f"bf16 mse_final {mse}")
+        if label in BF16_EVAL_BANDS:
+            lo, hi = BF16_EVAL_BANDS[label]["mse_final"]
+            check(lo <= mse <= hi, f"bf16 mse_final {mse} in [{lo}, {hi}]")
+        out[f"bf16_eval_{label}"] = {k: m[k].item() for k in
+                                     ("mse_final", "detect_mse")}
+
+    # ---- (33) bf16-train: preset=stove_billiards compute_dtype=bfloat16
+    # at the published widths and batch (256), the corpus cut as phase
+    # (9)'s: 2 warm-up and 6 STOVE steps through the scan and likelihood
+    # kernels and one evaluation (the dense bf16 rollout); finite losses,
+    # the last logged STOVE loss below the first; the step against
+    # float32's in turns; one batch's gradients, kernel path against the
+    # plain path with its semantics (plain_scan_kernel, the plain
+    # likelihood) by phase (9)'s criterion: each leaf within 1e-3 of its
+    # largest entry, raised to twice the plain path's own floor (its
+    # gradient's change when the frames move by 1e-5, frames_floor) where
+    # that is higher; the mixture logits within 1e-6.  At bf16 that floor
+    # is rounding flips: a bf16 activation that rounds the other way
+    # between two sums moves a gradient that is a small difference of
+    # large terms by tenths of the bf16 - f32 distance (PERF.md, PR 13);
+    # each leaf's distance over the plain path's bf16 - f32 one is printed
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    TEMP_DIRS.append(tmp)
+    common = ["preset=stove_billiards", "num_train=64", "num_test=32",
+              "scan_impl=pallas", "likelihood_impl=pallas",
+              f"run_dir={tmp}", fresh_data()]
+    snap = library_counts()
+    t = time.perf_counter()
+    cfg_t, _, dev_t = entry.build_config(
+        common + ["compute_dtype=bfloat16", "steps_per_epoch=2",
+                  "num_epochs=4", "supair_only_epochs=1", "eval_every=4",
+                  "run_name=bf16_train"])
+    tr, res = entry.run_train(cfg_t, dev_t)
+    torch.cuda.synchronize()
+    used = counted_since(snap)
+    logged = [json.loads(ln) for ln in open(
+        os.path.join(tr.run_dir, "metrics.jsonl"))]
+    losses = [r["loss"] for r in logged if r["kind"] == "train"]
+    phase("bf16-train", f"from scratch at compute_dtype=bfloat16, B=256: 2 "
+          f"warm-up + 6 STOVE steps in {time.perf_counter() - t:.1f} s; "
+          f"logged losses {losses}; mse_final {res['mse_final']:.4f}; "
+          f"launches {used}")
+    check(len(losses) == 4 and all(math.isfinite(x) for x in losses),
+          f"finite bf16 losses {losses}")
+    check(losses[-1] < losses[1], f"the bf16 STOVE loss falls: {losses}")
+    check(any(k.startswith("scan.cu") for k in used)
+          and any(k.startswith("likelihood.cu") for k in used)
+          and any("-DSTOVE_BF16=2" in k for k in used),
+          "bf16 training launched the scan, likelihood and dense rollout")
+
+    def step_ms(trainer, n=5):
+        b = data_lib.sample_windows(trainer.train_ep, trainer.cfg,
+                                    trainer.data_gen, trainer.cfg.batch_size)
+        trainer.train_step(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    trainers = {}
+    for dt in ("float32", "bfloat16"):
+        c, _, d = entry.build_config(common + [f"compute_dtype={dt}",
+                                               "nolog=true"])
+        trainers[dt] = Trainer(c, device=d)
+    steps = {}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        steps.setdefault(dt, []).append(step_ms(trainers[dt]))
+    phase("bf16-train", "STOVE step through the kernels at B=256: float32 "
+          f"{min(steps['float32']):.1f} ms, bfloat16 "
+          f"{min(steps['bfloat16']):.1f} ms (runs {steps}) on {card}")
+    out["step_ms"] = {dt: min(v) for dt, v in steps.items()}
+    out["bf16_train_losses"] = losses
+
+    B, T = cfg_t.batch_size, cfg_t.window
+    batch = data_lib.sample_windows(tr.train_ep, cfg_t,
+                                    torch.Generator(device=dev).manual_seed(3),
+                                    B)
+    noise = stove_lib.draw_elbo_noise(cfg_t, B, T,
+                                      torch.Generator().manual_seed(4), dev)
+    leaves = tree.leaves(tr.params)
+
+    def grads(c):
+        loss = stove_lib.elbo(tr.params, c, tr.model.specs, batch["frames"],
+                              None, None, noise).loss
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    before = fscan.launch_kernel.launches, flik.launch_kernel.launches
+    g_k = grads(cfg_t)
+    check(fscan.launch_kernel.launches > before[0]
+          and flik.launch_kernel.launches > before[1],
+          "the kernel path's gradient launched the scan and likelihood")
+    plain_cfg = cfg_t.with_overrides(likelihood_impl="xla")
+    paths = [p for p, _ in tree.paths(tr.params)]
+    logits = lambda path: "logits" in str(path[-1])  # noqa: E731
+    with plain_scan_kernel():
+        g_p = grads(plain_cfg)
+        floor = frames_floor(grads, batch, plain_cfg, paths, g_p, logits,
+                             dev)
+    g_f = grads(cfg_t.with_overrides(compute_dtype="float32",
+                                     scan_impl="xla", likelihood_impl="xla"))
+    lim_rel = max(1e-3, 2 * floor)
+    rows_g = []
+    for path, a, b, f in zip(paths, g_k, g_p, g_f):
+        if b is None:
+            check(a is None, f"gradient presence {path}")
+            continue
+        scale = 1.0 if logits(path) else b.abs().max().item() or 1.0
+        lim = 1e-6 if logits(path) else lim_rel
+        d = (a - b).abs().max().item()
+        rows_g.append((d / scale / lim,
+                       d / max((b - f).abs().max().item(), 1e-30),
+                       tree.keystr(path)))
+    rows_g.sort(reverse=True)
+    for r in rows_g[:4]:
+        phase("bf16-train", f"gradient {r[2]}: max |kernel - plain| "
+              f"{r[0]:.3f} of its limit, {r[1]:.3f}x the plain path's "
+              f"bf16 - f32 distance")
+    ratios = sorted(r[1] for r in rows_g)
+    phase("bf16-train", f"gradients at bf16 on one batch, {len(rows_g)} "
+          f"leaves: the plain path's own floor (frames moved by 1e-5) "
+          f"{floor:.2e} of a leaf's largest entry, limit {lim_rel:.2e}; "
+          f"worst share of the limit {rows_g[0][0]:.3f}; kernel vs plain "
+          f"over the plain path's bf16 - f32 distance: median "
+          f"{ratios[len(ratios) // 2]:.3f}, max {ratios[-1]:.3f}")
+    check(rows_g[0][0] <= 1.0, "bf16 kernel-path gradients")
+    out["grad"] = {"floor": floor, "worst_share": rows_g[0][0],
+                   "bf16_ratio_median": ratios[len(ratios) // 2],
+                   "bf16_ratio_max": ratios[-1]}
+
+    # ---- (34) parallel: data parallelism on the one card.  NCCL at world
+    # size 1 (the step in the group equals the step without one, bit for
+    # bit); two ranks over gloo sharing the card if gloo takes CUDA
+    # tensors (NCCL refuses two ranks on one device): the sharded loss
+    # equals the one-device loss to rel 1e-4; mesh_shape=(2,) in one
+    # process raises
+    t = time.perf_counter()
+    r1 = dryrun.dryrun_multichip(1, device="cuda")
+    phase("parallel", f"NCCL world 1: loss {r1['loss']:.4f}, one-device "
+          f"{r1['loss_1dev']:.4f}, bit for bit {r1['bitwise']} "
+          f"({time.perf_counter() - t:.1f} s)")
+    check(r1["bitwise"], "the NCCL world-1 step equals the plain step")
+    refused = dryrun.backend_refuses("cuda", "gloo")
+    out["parallel"] = {"nccl_world_1": r1, "gloo_cuda_refused": refused}
+    if refused is None:
+        t = time.perf_counter()
+        r2 = dryrun.dryrun_multichip(2, device="cuda", backend="gloo")
+        phase("parallel", f"gloo, two ranks on the card: loss "
+              f"{r2['loss']:.4f}, one-device {r2['loss_1dev']:.4f}, rel "
+              f"{r2['rel']:.2e} ({time.perf_counter() - t:.1f} s)")
+        check(r2["rel"] < 1e-4, "the two-rank loss equals one device's")
+        out["parallel"]["gloo_cuda_2"] = r2
+    else:
+        phase("parallel", f"gloo refuses CUDA tensors on this machine: "
+              f"{refused}")
+    try:
+        Trainer(cfg.with_overrides(mesh_shape=(2,), nolog=True), device=dev)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    phase("parallel", f"mesh_shape=(2,) in one process: {raised}")
+    check("torch.distributed.run" in raised, "a mesh above the world raises")
     return out
 
 

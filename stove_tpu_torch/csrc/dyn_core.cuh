@@ -16,7 +16,12 @@
 // scan's among them, as its prefix).  Without them the layout, shared
 // memory and code are those of the action-free model.  STOVE_BF16=1 is the
 // TPU kernel's bfloat16 variant (make_mm at bf16: matmul operands rounded
-// to bf16, f32 sums).  Everything here lives in an anonymous namespace:
+// to bf16, f32 sums); STOVE_BF16=2 the dense path under
+// compute_dtype=bfloat16 (stove_tpu/models/dynamics.py:61-68), which also
+// rounds the operands the variant keeps in f32: the relational attention
+// column's dot and the reward head's geometry rows and last columns
+// (`dense_round`; a bf16 x bf16 product is exact in f32, so an FMA of the
+// rounded operands is the dense path's product).  Everything here lives in an anonymous namespace:
 // each kernel library gets its own copy.
 //
 // One core for both kernels: activations row-major in shared memory,
@@ -113,6 +118,7 @@ constexpr bool OPEN = STOVE_OPEN != 0;  // open-loop std head (sampled rollout)
 constexpr int OPP = (4 + CL + 63) / 64 * 64;  // its padded output width (mma_gemm's N)
 
 constexpr bool BF16 = STOVE_BF16 != 0;
+constexpr bool DENSE_BF16 = STOVE_BF16 == 2;
 constexpr int KTILE = BF16 ? 16 : 8;    // k of one mma
 constexpr int EB = BF16 ? 2 : 4;        // bytes of a packed matrix element
 
@@ -221,6 +227,14 @@ static_assert(SMEM_BYTES <= 232448, "shared memory above the 227 KB a block can 
 
 __device__ __forceinline__ float sigmoidf(float x) {
     return 1.f / (1.f + expf(-x));
+}
+
+// x rounded to bf16 (nearest even) in the STOVE_BF16=2 library, else x: an
+// operand of a product the dense bf16 path rounds and the kernel's variant
+// takes in f32.
+__device__ __forceinline__ float dense_round(float x) {
+    if constexpr (DENSE_BF16) return __bfloat162float(__float2bfloat16_rn(x));
+    return x;
 }
 
 // ---- primitives (inline PTX) ------------------------------------------------
@@ -576,11 +590,12 @@ __device__ __forceinline__ void dyn_step(const Smem& s, const unsigned char* __r
             st2(FT + r * LDH + n, v0 + b.x, v1 + b.y);
         });
     // attention: sigmoid(h2 . w_ra + b_ra) per pair row, in f32 (as the TPU
-    // kernel's jnp.sum), one warp per row (h2 is visible: the gemm above
-    // began with barriers)
+    // kernel's jnp.sum; both operands rounded in the dense bf16 library),
+    // one warp per row (h2 is visible: the gemm above began with barriers)
     for (int m = warp; m < MPR; m += NW) {
         float a = 0.f;
-        for (int k = lane; k < HID; k += 32) a = fmaf(H2[m * LDH + k], __ldg(V + V_WRA + k), a);
+        for (int k = lane; k < HID; k += 32)
+            a = fmaf(dense_round(H2[m * LDH + k]), dense_round(__ldg(V + V_WRA + k)), a);
         a = warp_sum(a);
         if (lane == 0) s.lg[m] = sigmoidf(a + __ldg(V + V_BRA));
     }
@@ -679,7 +694,9 @@ __device__ __forceinline__ const float* open_head(const Smem& s,
 // objects (dist = sqrt(|p_o - p_j|^2 + 1e-8), s the mean of the two size
 // columns); both heads' first layers as one N = 2h matmul over [s ; r] plus
 // the gap and distance rows, ReLU; each head's h -> h ReLU layer (f32 out);
-// each head's last column as a warp-wide f32 dot product.  Leaves the score
+// each head's last column as a warp-wide f32 dot product (the gap and
+// distance rows and the last columns on rounded operands in the dense bf16
+// library: `dense_round`).  Leaves the score
 // in rw[2 MROWS + r] and the attention logit in rw[3 MROWS + r].  Uses R1,
 // R2; `after` as dyn_step's.  Every thread calls it; it ends synchronised.
 __device__ __forceinline__ void reward_head(const Smem& s, const unsigned char* __restrict__ P,
@@ -712,9 +729,10 @@ __device__ __forceinline__ void reward_head(const Smem& s, const unsigned char* 
         [&](int r, int n, float v0, float v1) {
             const float2 b = ldg2(V + R_BH0 + n);
             const float2 wg = ldg2(V + R_WHG + n), wd = ldg2(V + R_WHD + n);
-            const float gp = RW[r], dd = RW[MROWS + r];
-            st2(F0 + r * LD2 + n, fmaxf(v0 + b.x + wg.x * gp + wd.x * dd, 0.f),
-                fmaxf(v1 + b.y + wg.y * gp + wd.y * dd, 0.f));
+            const float gp = dense_round(RW[r]), dd = dense_round(RW[MROWS + r]);
+            st2(F0 + r * LD2 + n,
+                fmaxf(v0 + b.x + dense_round(wg.x) * gp + dense_round(wd.x) * dd, 0.f),
+                fmaxf(v1 + b.y + dense_round(wg.y) * gp + dense_round(wd.y) * dd, 0.f));
         });
     mma_gemm<MT, MR, HID, HID>(F0, LD2, P + O_WRW1, s.ring, q,
         next_matrix<HID, HID>(P + O_WRA1),
@@ -732,7 +750,8 @@ __device__ __forceinline__ void reward_head(const Smem& s, const unsigned char* 
         const int hd = i / MR, m = i % MR;
         const float* f = F1 + m * LD2 + hd * HID;
         float a = 0.f;
-        for (int k = lane; k < HID; k += 32) a = fmaf(f[k], __ldg(V + R_WH2 + hd * HID + k), a);
+        for (int k = lane; k < HID; k += 32)
+            a = fmaf(dense_round(f[k]), dense_round(__ldg(V + R_WH2 + hd * HID + k)), a);
         a = warp_sum(a);
         if (lane == 0) RW[(2 + hd) * MROWS + m] = a + __ldg(V + R_BH2 + hd);
     }

@@ -10,7 +10,11 @@
 // STOVE_BF16=1 is its default bfloat16 variant (make_mm: every matmul
 // operand rounded to bf16, f32 accumulation; biases, the attention column,
 // the reward head's gap and distance rows and last columns, integration
-// and noise in f32), STOVE_BF16=0 its float32 variant.  Same contract: z0
+// and noise in f32), STOVE_BF16=0 its float32 variant; and a third,
+// STOVE_BF16=2, what stove_tpu/models/stove.py::rollout computes under
+// compute_dtype=bfloat16: the bf16 core with the attention column and the
+// reward head's geometry rows and last columns rounded too (dyn_core.cuh,
+// dense_round), the same work as STOVE_BF16=1.  Same contract: z0
 // (B, O, 6+cl) f32 and, for an action-conditioned model (STOVE_ACT=1),
 // actions (B, H) int32 in; states (B, H, O, 6+cl) f32 and, with the reward
 // head (STOVE_REW=1), the raw reward probabilities (B, H) f32 out; mean or
@@ -212,7 +216,7 @@ int stove_rollout_smem_bytes() { return (int)SMEM_BYTES; }
 
 int stove_rollout_tile() { return TB; }
 
-int stove_rollout_bf16() { return BF16 ? 1 : 0; }
+int stove_rollout_bf16() { return STOVE_BF16; }
 
 // Launches the rollout on `stream`; returns the CUDA error code (0 = ok).
 // Pointers are device pointers; params is prepare_params' buffer for this

@@ -7,9 +7,11 @@ the JAX trainer or the port's: its config.json and latest ckpt_*.npz),
 `preset=`, `device=` (`cuda`, the default, or `cpu`), and any Config
 field as an override (`scan_impl=pallas`, `likelihood_impl=pallas`,
 `spn_impl=pallas` select the port's training kernels, the scan's forward
-in bfloat16 as the JAX package's; every rollout on the card runs the
-rollout kernel, in float32 but for the planner's leaves under
-`mcts_rollout_impl=pallas`, which run its bfloat16 library).
+in bfloat16 as the JAX package's; `compute_dtype=bfloat16` rounds the
+operands of the encoder's and the dynamics' products to bfloat16, sums in
+float32, as the JAX package's; every rollout on the card runs the rollout
+kernel, at compute_dtype's precision but for the planner's leaves under
+`mcts_rollout_impl=pallas`, which run the TPU kernel's bfloat16 variant).
 
 Every mode that reads a corpus reads it through `envs/data.py::
 ensure_dataset`, as the JAX package does: the split's file under
@@ -101,11 +103,28 @@ def run_eval(cfg: Config, device=None) -> Dict[str, torch.Tensor]:
 
 
 def run_train(cfg: Config, device=None):
-    """mode=train: train (or resume); returns (trainer, last metrics)."""
+    """mode=train: train (or resume); returns (trainer, last metrics).
+
+    Under `python -m torch.distributed.run --nproc_per_node=N` (WORLD_SIZE
+    in the environment) this process joins the group as rank RANK, on
+    card LOCAL_RANK (or the CPU with device=cpu, over gloo), and the
+    Trainer shards its batch over `mesh_shape`; the other modes run in one
+    process."""
+    from stove_tpu_torch.parallel import mesh as mesh_lib
     from stove_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(cfg, device=device)
-    return trainer, trainer.train()
+    if "WORLD_SIZE" not in os.environ:
+        trainer = Trainer(cfg, device=device)
+        return trainer, trainer.train()
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    mesh_lib.init_process_group(resolve_device(dev))
+    try:
+        trainer = Trainer(cfg, device=dev)
+        return trainer, trainer.train()
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def run_generate(cfg: Config, device=None) -> Dict[str, str]:

@@ -5,10 +5,11 @@ Holds the config, the RAT-SPN region graphs (`specs`, from the run's
 permutation seeds), the parameter tree and the device, and exposes
 `init_params`, `elbo`, `supair_elbo`, `infer`, `infer_each` and
 `rollout`.  On a CUDA device the rollout kernel's packed weights are
-prepared from `params` (`set_params` prepares them again after the weights
-change), so every rollout launch reuses them.  The port computes in
-float32 only: a config asking for `compute_dtype=bfloat16` raises here,
-where every entry point builds its model.
+prepared from `params` at the first rollout (again after `set_params`),
+so every rollout launch reuses them; a model the kernel does not take (a
+debug-width config) trains on the card without them.
+`cfg.compute_dtype` sets the precision of the encoder, the dynamics and
+the rollout (`dynamics.precision_of`); parameters stay float32.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from stove_tpu_torch.config import Config
 from stove_tpu_torch.device import resolve_device
+from stove_tpu_torch.models import dynamics as dyn_lib
 from stove_tpu_torch.models import stove as stove_lib
 from stove_tpu_torch.models import supair as supair_lib
 from stove_tpu_torch.ops import fused_rollout
@@ -32,10 +34,6 @@ class StoveModel:
         """`seeds`: the SPN permutation seeds (a fresh draw from cfg.seed
         when absent); `params`: the weights (a fresh `init_params` when
         absent)."""
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"not ported yet: compute_dtype={cfg.compute_dtype} (the "
-                "port computes in float32)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seeds = seeds if seeds is not None else \
@@ -56,30 +54,29 @@ class StoveModel:
                    supair_lib.run_spec_seeds(run_dir, cfg))
 
     def set_params(self, params: Dict) -> None:
-        """Use `params` (moved to the model's device as needed) and, on the
-        card, pack the rollout kernel's float32 weights from them (the
-        bfloat16 ones at their first use, `prepared_for`)."""
+        """Use `params` (moved to the model's device as needed); the rollout
+        kernel's packed weights are packed from them anew at first use."""
         self.params = ckpt_lib.params_from_numpy(params, self.device)
-        self.prepared = None
-        self._prepared_bf16 = None
-        if self.device.type == "cuda":
-            self.prepared = self.prepared_for("float32")
+        self._prepared: Dict[bool, torch.Tensor] = {}
+        self.precision = dyn_lib.precision_of(self.cfg)
+
+    @property
+    def prepared(self) -> Optional[torch.Tensor]:
+        """The packed weights at compute_dtype's precision (`prepared_for`)."""
+        return self.prepared_for(self.precision)
 
     def prepared_for(self, dtype: str) -> Optional[torch.Tensor]:
         """The rollout kernel's packed weights for `dtype` on the card,
-        packed once per set of params; None on the CPU."""
+        packed once per set of params (one buffer serves both bf16
+        precisions); None on the CPU."""
         if self.device.type != "cuda":
             return None
-        if dtype == "float32" and self.prepared is not None:
-            return self.prepared
-        if dtype == "bfloat16" and self._prepared_bf16 is not None:
-            return self._prepared_bf16
-        with torch.no_grad():
-            buf = fused_rollout.prepare_params(self.params["dynamics"],
-                                               self.cfg, dtype)
-        if dtype == "bfloat16":
-            self._prepared_bf16 = buf
-        return buf
+        key = fused_rollout.check_dtype(dtype) != "float32"
+        if key not in self._prepared:
+            with torch.no_grad():
+                self._prepared[key] = fused_rollout.prepare_params(
+                    self.params["dynamics"], self.cfg, dtype)
+        return self._prepared[key]
 
     def init_params(self, generator: Optional[torch.Generator] = None
                     ) -> Dict:
@@ -94,10 +91,11 @@ class StoveModel:
              actions: Optional[torch.Tensor] = None,
              rewards: Optional[torch.Tensor] = None,
              noise: Optional[stove_lib.ElboNoise] = None,
-             generator: Optional[torch.Generator] = None
+             generator: Optional[torch.Generator] = None,
+             batch_rewards: Optional[torch.Tensor] = None
              ) -> stove_lib.ElboOut:
         return stove_lib.elbo(params, self.cfg, self.specs, frames, actions,
-                              rewards, noise, generator)
+                              rewards, noise, generator, batch_rewards)
 
     def supair_elbo(self, params: Dict, frames: torch.Tensor,
                     noise: torch.Tensor):
@@ -137,9 +135,10 @@ class StoveModel:
 
     def rollout(self, z0: torch.Tensor, actions: Optional[torch.Tensor],
                 horizon: int, generator: Optional[torch.Generator] = None,
-                sample: bool = False, dtype: str = "float32"):
-        """`stove.rollout` with this model's weights; `dtype` the matmuls'
-        precision ("float32" or "bfloat16")."""
+                sample: bool = False, dtype: Optional[str] = None):
+        """`stove.rollout` with this model's weights; `dtype` the
+        precision (`dynamics.PRECISIONS`; None: compute_dtype's)."""
+        dtype = dtype or self.precision
         return stove_lib.rollout(self.params, self.cfg, z0, actions, horizon,
                                  generator, sample, self.prepared_for(dtype),
                                  dtype)

@@ -71,16 +71,45 @@ def init_params(cfg: Config, generator: Optional[torch.Generator] = None,
     return params
 
 
+# The dynamics' three precisions.  "float32"; "dense_bf16", the dense
+# path under compute_dtype=bfloat16 (dynamics.py:61-68, :120): both
+# operands of every product rounded to bfloat16 -- the relational attention
+# column, recv and send, every layer of the open and both reward heads
+# with their geometry rows and last columns included -- sums in float32;
+# "bfloat16", the TPU kernels' bf16 variant (pallas_rollout.py::make_mm),
+# which rounds the same products but for the attention column and the
+# reward heads' geometry rows and last layers, which it keeps in float32.
+# The last is what `scan_impl=pallas` and the `pallas` planner leaves run
+# whatever compute_dtype is; the first two follow compute_dtype.
+PRECISIONS = ("float32", "bfloat16", "dense_bf16")
+
+
+def precision_of(cfg: Config) -> str:
+    """The precision `cfg.compute_dtype` asks of the dense path."""
+    return "dense_bf16" if cfg.compute_dtype == "bfloat16" else "float32"
+
+
+def check_precision(precision: Optional[str], cfg: Config) -> str:
+    """`precision`, or `cfg`'s when None; ValueError for an unknown one."""
+    precision = precision_of(cfg) if precision is None else precision
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision (dtype) {precision!r}: one of "
+                         f"{PRECISIONS}")
+    return precision
+
+
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to bfloat16 (nearest even) and back to its dtype."""
+    """x rounded to bfloat16 (nearest even) and back to its dtype; its
+    gradient is rounded so too, as the cotangent of JAX's astype is."""
     return x.to(torch.bfloat16).to(x.dtype)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, bf16: bool = False
            ) -> torch.Tensor:
     """x @ w; with `bf16` both operands rounded to bfloat16 first and the
-    products summed in x's dtype (the TPU kernels' bf16 matmuls,
-    pallas_rollout.py::make_mm)."""
+    products summed in x's dtype (an exact bf16 x bf16 product, f32 sums:
+    `jnp.dot(..., preferred_element_type=f32)`, and the TPU kernels'
+    make_mm)."""
     return bf16_round(x) @ bf16_round(w) if bf16 else x @ w
 
 
@@ -94,15 +123,19 @@ def mlp(layers, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
 
 
 def apply(params: Dict, cfg: Config, z: torch.Tensor,
-          action: Optional[torch.Tensor] = None, bf16: bool = False
-          ) -> DynOut:
+          action: Optional[torch.Tensor] = None,
+          precision: Optional[str] = None) -> DynOut:
     """One transition step.  z: (B, O, 6+cl); action: (B,) int64 or None.
 
-    `bf16` is the TPU kernels' bfloat16 variant: both operands of every
-    product that `pallas_rollout.make_mm` rounds go to bfloat16 first
-    (every layer but the relational attention column and the reward
-    heads' geometry rows and last layers, which the kernels keep in
-    float32), sums stay in z's dtype."""
+    `precision` (`PRECISIONS`; None: `precision_of(cfg)`, as JAX's apply
+    reads compute_dtype): "dense_bf16" rounds both operands of every
+    product; "bfloat16", the TPU kernels' variant, overrides
+    compute_dtype as those kernels ignore it, and keeps the relational
+    attention column and the reward heads' geometry rows and last layers
+    in float32.  Sums stay in z's dtype."""
+    precision = check_precision(precision, cfg)
+    kernel_bf16 = precision == "bfloat16"
+    bf16 = precision != "float32"
     B, O, _ = z.shape
     inp = z
     if cfg.action_conditioned:
@@ -111,7 +144,9 @@ def apply(params: Dict, cfg: Config, z: torch.Tensor,
         onehot = F.one_hot(action.long(), cfg.num_actions).to(z.dtype)
         inp = torch.cat([z, onehot[:, None, :].expand(B, O, -1)], -1)
 
-    dense = (lambda layers, x: mlp(layers, x, True)) if bf16 else mlp
+    def dense(layers, x):
+        return mlp(layers, x, True) if bf16 else mlp(layers, x)
+
     e = dense(params["embed"], inp)                           # (B, O, h)
     s = dense(params["self"], e)                              # (B, O, h)
 
@@ -122,7 +157,7 @@ def apply(params: Dict, cfg: Config, z: torch.Tensor,
     send = matmul(e, w1["w"][h_e:], bf16)
     pair_h = torch.relu(recv[:, :, None, :] + send[:, None, :, :]
                         + w1["b"])                            # (B, O, O, h)
-    if bf16:
+    if kernel_bf16:
         # features through rounded operands, the attention column in full
         x = pair_h
         for lyr in rest[:-1]:
@@ -131,7 +166,7 @@ def apply(params: Dict, cfg: Config, z: torch.Tensor,
         rel = matmul(x, last["w"][:, :-1], bf16) + last["b"][:-1]
         att = torch.sigmoid(x @ last["w"][:, -1:] + last["b"][-1:])
     else:
-        rel_att = mlp(rest, pair_h)                           # (B, O, O, h+1)
+        rel_att = dense(rest, pair_h)                         # (B, O, O, h+1)
         rel = rel_att[..., :-1]
         att = torch.sigmoid(rel_att[..., -1:])
     mask = (1.0 - torch.eye(O, dtype=z.dtype, device=z.device)
@@ -175,7 +210,7 @@ def apply(params: Dict, cfg: Config, z: torch.Tensor,
         min_gap = torch.amin(gap + big, dim=-1)
         min_dist = torch.amin(pdist + big, dim=-1)
         geo = torch.stack([min_gap, min_dist], -1)            # (B, O, 2)
-        if bf16:
+        if kernel_bf16:
             h = s.shape[-1]
 
             def head(layers):
@@ -190,8 +225,8 @@ def apply(params: Dict, cfg: Config, z: torch.Tensor,
             att_r = torch.softmax(head(params["reward_att"]), -1)
         else:
             feat = torch.cat([s, r, geo], -1)
-            score = mlp(params["reward"], feat)[..., 0]       # (B, O)
-            att_r = torch.softmax(mlp(params["reward_att"], feat)[..., 0],
+            score = dense(params["reward"], feat)[..., 0]     # (B, O)
+            att_r = torch.softmax(dense(params["reward_att"], feat)[..., 0],
                                   -1)
         reward = torch.sigmoid(torch.sum(att_r * score, dim=-1))
     else:

@@ -10,6 +10,15 @@ Parameters keep the JAX layouts (conv weights HWIO, dense weights
   `_same_pad` computes XLA's split and pads explicitly before the conv;
 * the flatten before `mlp1` is over NHWC, so features are moved back to
   the last axis first (encoder.py:94).
+
+With cfg.compute_dtype="bfloat16" it computes what encoder.py:71-99 does:
+the frames and conv weights in bf16, each conv's output bf16 (the f32 sum
+of the rounded operands' products, rounded once: F.conv2d on bf16
+tensors, as JAX's bf16 conv_general_dilated without
+preferred_element_type), bias and ReLU in f32 and the result rounded to
+bf16 again; the dense layers on rounded operands with f32 outputs (an f32
+product of the rounded values: `torch.matmul` on two bf16 tensors would
+round its output to bf16, which JAX's preferred_element_type=f32 does not).
 """
 
 from __future__ import annotations
@@ -67,7 +76,8 @@ def _same_pad(n: int, k: int, s: int) -> Tuple[int, int]:
 def apply(params: Dict, cfg: Config, frames: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """frames (B, H, W) → (mean, std), each (B, O, 4) = (sx, sy, tx, ty)."""
-    x = frames[..., None].to(torch.float32)                   # (B, H, W, 1)
+    cd = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    x = frames[..., None].to(cd)                              # (B, H, W, 1)
     s2d = max(1, cfg.encoder_space_to_depth)
     if s2d > 1:
         B, H, W, C = x.shape
@@ -78,20 +88,22 @@ def apply(params: Dict, cfg: Config, frames: torch.Tensor
     n_convs = len(params["convs"])
     for i, conv in enumerate(params["convs"]):
         stride = 1 if (cfg.encoder_final_stride1 and i == n_convs - 1) else 2
-        w = conv["w"].permute(3, 2, 0, 1)                     # HWIO → OIHW
+        w = conv["w"].permute(3, 2, 0, 1).to(cd)              # HWIO → OIHW
         kh, kw = w.shape[2:]
         top, bottom = _same_pad(x.shape[2], kh, stride)
         left, right = _same_pad(x.shape[3], kw, stride)
         x = F.pad(x, (left, right, top, bottom))
         x = F.conv2d(x, w, stride=stride)
-        x = torch.relu(x + conv["b"][None, :, None, None])
+        x = torch.relu(x.to(torch.float32)
+                       + conv["b"][None, :, None, None]).to(cd)
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)         # NHWC flatten
 
     def dense(layer, v):
-        return v @ layer["w"] + layer["b"]
+        return (v.to(torch.float32) @ layer["w"].to(cd).to(torch.float32)
+                + layer["b"])
 
-    x = torch.relu(dense(params["mlp1"], x))
-    x = torch.relu(dense(params["mlp2"], x))
+    x = torch.relu(dense(params["mlp1"], x)).to(cd)
+    x = torch.relu(dense(params["mlp2"], x)).to(cd)
     out = dense(params["head"], x).reshape(-1, cfg.num_obj, 8)
     raw_mean, raw_std = out[..., :4], out[..., 4:]
 

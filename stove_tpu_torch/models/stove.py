@@ -226,6 +226,19 @@ def draw_elbo_noise(cfg: Config, B: int, T: int,
     return ElboNoise(inf, over)
 
 
+def noise_rows(noise: ElboNoise, rows: slice, B: int) -> ElboNoise:
+    """The draws of rows `rows` of a batch of B windows: each InferNoise
+    field's rows, and the overshoot draws of those windows' start steps
+    (their (K, B·S, O, D) rows are window-major)."""
+    inf = InferNoise(*(x[rows] for x in noise.infer))
+    over = noise.overshoot
+    if over is not None:
+        K, BS = over.shape[:2]
+        over = over.reshape(K, B, BS // B, *over.shape[2:])[:, rows]
+        over = over.reshape(K, -1, *over.shape[3:])
+    return ElboNoise(inf, over)
+
+
 class ElboOut(NamedTuple):
     loss: torch.Tensor
     elbo: torch.Tensor
@@ -239,11 +252,15 @@ class ElboOut(NamedTuple):
 
 
 def _balanced_bce(pred: torch.Tensor, target: torch.Tensor, balanced: bool,
-                  label_smooth: float = 0.0, pos_rate: float = 0.0
+                  label_smooth: float = 0.0, pos_rate: float = 0.0,
+                  batch_target: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """Binary cross-entropy, optionally inverse-frequency class-weighted
     (by `pos_rate` when > 0, else the batch mean, clipped to [0.05, 0.95])
-    and label-smoothed; the class weights use the hard labels."""
+    and label-smoothed; the class weights use the hard labels.  The batch
+    mean is over `batch_target` when given: the whole batch's targets when
+    `target` is one shard of it, as XLA takes jnp.mean over a sharded
+    batch."""
     eps = 1e-6
     soft = target * (1.0 - label_smooth) + 0.5 * label_smooth
     bce = -(soft * torch.log(pred + eps)
@@ -251,7 +268,9 @@ def _balanced_bce(pred: torch.Tensor, target: torch.Tensor, balanced: bool,
     if balanced:
         pr = (torch.clamp(torch.as_tensor(pos_rate, dtype=pred.dtype,
                                           device=pred.device), 0.05, 0.95)
-              if pos_rate > 0 else torch.clamp(torch.mean(target), 0.05, 0.95))
+              if pos_rate > 0 else torch.clamp(torch.mean(
+                  target if batch_target is None else batch_target),
+                  0.05, 0.95))
         w = torch.where(target > 0.5, 0.5 / pr, 0.5 / (1.0 - pr))
         bce = bce * w
     return torch.mean(bce)
@@ -260,15 +279,16 @@ def _balanced_bce(pred: torch.Tensor, target: torch.Tensor, balanced: bool,
 def overshoot_losses(params: Dict, cfg: Config, inf: InferOut,
                      actions: Optional[torch.Tensor],
                      rewards: Optional[torch.Tensor],
-                     noise: Optional[torch.Tensor] = None
+                     noise: Optional[torch.Tensor] = None,
+                     batch_rewards: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Latent overshooting (stove.py:386-520): from every posterior sample
     z_t (t ≤ T−K) the dynamics rolls K steps open loop; predicted positions
     are held to the detached posterior position means at t+k.  Also the
     open-loop reward loss (reward head with actions) and the open-loop std
     NLL (open_loop_sigma).  `noise` (K, B·S, O, D): the open-loop draws
-    when cfg.overshoot_sample is on.  Returns (position, reward, sigma
-    NLL) losses."""
+    when cfg.overshoot_sample is on; `batch_rewards` as `elbo`'s.  Returns
+    (position, reward, sigma NLL) losses."""
     K = cfg.overshoot_k
     B, T = inf.z.shape[:2]
     S = T - K
@@ -334,16 +354,24 @@ def overshoot_losses(params: Dict, cfg: Config, inf: InferOut,
             r_tgt = rewards[:, k - 1:k - 1 + S]
             total_rew = total_rew + _balanced_bce(
                 dyn.reward.reshape(B, S), r_tgt, cfg.reward_balanced_loss,
-                cfg.reward_label_smooth, cfg.reward_pos_rate)
+                cfg.reward_label_smooth, cfg.reward_pos_rate,
+                None if batch_rewards is None
+                else batch_rewards[:, k - 1:k - 1 + S])
     return total_pos / K, total_rew / K, sigma_nll
 
 
 def elbo(params: Dict, cfg: Config, specs: StoveSpecs, frames: torch.Tensor,
          actions: Optional[torch.Tensor], rewards: Optional[torch.Tensor],
          noise: Optional[ElboNoise] = None,
-         generator: Optional[torch.Generator] = None) -> ElboOut:
+         generator: Optional[torch.Generator] = None,
+         batch_rewards: Optional[torch.Tensor] = None) -> ElboOut:
     """Negative training loss for a window (stove.py:523-566): −ELBO/T plus
-    the reward and overshoot terms.  frames (B, T, H, W)."""
+    the reward and overshoot terms.  frames (B, T, H, W).
+
+    Every term is a mean over the windows, so the loss of a batch is the
+    mean of its shards' losses, but for the balanced reward BCE's batch
+    rate (reward_pos_rate <= 0): when `frames` is one shard of a batch,
+    `batch_rewards` (the whole batch's rewards) gives it."""
     B, T = frames.shape[:2]
     if noise is None:
         noise = draw_elbo_noise(cfg, B, T, generator, frames.device)
@@ -364,12 +392,15 @@ def elbo(params: Dict, cfg: Config, specs: StoveSpecs, frames: torch.Tensor,
         reward_loss = _balanced_bce(inf.rewards[:, 2:], rewards[:, 1:T - 1],
                                     cfg.reward_balanced_loss,
                                     cfg.reward_label_smooth,
-                                    cfg.reward_pos_rate)
+                                    cfg.reward_pos_rate,
+                                    None if batch_rewards is None
+                                    else batch_rewards[:, 1:T - 1])
     else:
         reward_loss = zero
     if cfg.overshoot_k > 0:
         ov, ov_rew, ov_nll = overshoot_losses(params, cfg, inf, actions,
-                                              rewards, noise.overshoot)
+                                              rewards, noise.overshoot,
+                                              batch_rewards)
     else:
         ov = ov_rew = ov_nll = zero
 
@@ -390,17 +421,17 @@ def rollout(params: Dict, cfg: Config, z0: torch.Tensor,
             generator: Optional[torch.Generator] = None,
             sample: bool = False,
             prepared: Optional[torch.Tensor] = None,
-            dtype: str = "float32"
+            dtype: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Iterate the transition prior from z0 for `horizon` steps.
 
     z0: (B, O, 6+cl); actions: (B, horizon) or None (ignored unless the
     config is action-conditioned).  Returns (states (B, H, O, 6+cl),
-    rewards (B, H)), from `fused_rollout.rollout` at `dtype` ("float32" or
-    "bfloat16", the matmuls' precision): the kernel for CUDA tensors
-    (`prepared` = its packed weights for that dtype, cached by the
-    caller), the plain loop for CPU tensors, with noise drawn from
-    `generator`.
+    rewards (B, H)), from `fused_rollout.rollout` at `dtype`
+    (`dynamics.PRECISIONS`; None: cfg.compute_dtype's, as stove.py:592
+    reads it): the kernel for CUDA tensors (`prepared` = its packed
+    weights for that dtype, cached by the caller), the plain loop for CPU
+    tensors, with noise drawn from `generator`.
     """
     acts = actions if cfg.action_conditioned else None
     return fused_rollout.rollout(params["dynamics"], cfg, z0.contiguous(),

@@ -9,11 +9,17 @@ action-conditioned model it takes the per-step actions, and with a reward
 head it returns the per-step raw reward probabilities.  See the notes at the
 top of the source for its bounds and design.
 
-* `dtype` picks the precision, as `pallas_rollout`'s `dtype` does:
-  "bfloat16" (the TPU kernel's default and perf path: every matmul operand
-  rounded to bf16, f32 sums, on the tensor cores) or "float32" (FMA on the
-  CUDA cores, the parity path).  The planner's leaves take bf16 under `mcts_rollout_impl=pallas`
-  (planning/simulators.py); everything else takes float32.
+* `dtype` picks the precision (`dynamics.PRECISIONS`; None: the one
+  `cfg.compute_dtype` asks for, `dynamics.precision_of`): "bfloat16", the
+  TPU kernel's default and perf path as `pallas_rollout`'s `dtype` gives
+  it (make_mm: matmul operands rounded to bf16, f32 sums, on the tensor
+  cores; the attention column and the reward head's geometry rows and
+  last columns in f32), "float32" (FMA on the CUDA cores), or
+  "dense_bf16", what the dense path computes under
+  compute_dtype=bfloat16 (`stove.rollout`: the same tensor-core core,
+  with the operands the kernel's variant keeps in f32 rounded too).  The
+  planner's leaves take "bfloat16" under `mcts_rollout_impl=pallas`
+  (planning/simulators.py); everything else takes compute_dtype's.
 * `load` compiles the source with plain `nvcc` for sm_90a into a shared
   library under `build/kernels/` (listed in .gitignore) at first use and
   loads it with ctypes (`ops/_build.py`).  Shapes, heads, precision and
@@ -52,13 +58,22 @@ from stove_tpu_torch.ops import _build
 TILE = 16          # samples per block (STOVE_TB)
 SMALL_TILE = 4     # ... when TILE would leave SMs empty
 N_SMS = 132        # the H100's streaming multiprocessors
-DTYPES = ("float32", "bfloat16")
+DTYPES = ("float32", "bfloat16")     # the TPU kernel's two precisions
+# STOVE_BF16 of csrc/dyn_core.cuh for each precision (`dynamics.PRECISIONS`:
+# the TPU kernel's two and compute_dtype=bfloat16's "dense_bf16")
+BF16_LEVEL = {"float32": 0, "bfloat16": 1, "dense_bf16": 2}
 
 
 def check_dtype(dtype: str) -> str:
-    if dtype not in DTYPES:
-        raise ValueError(f"rollout dtype {dtype!r}: one of {DTYPES}")
+    if dtype not in BF16_LEVEL:
+        raise ValueError(f"rollout dtype {dtype!r}: one of "
+                         f"{tuple(BF16_LEVEL)}")
     return dtype
+
+
+def _bf16_weights(dtype: str) -> bool:
+    """Whether the library of `dtype` takes its matrices in bf16."""
+    return check_dtype(dtype) != "float32"
 
 
 def tile_for(B: int) -> int:
@@ -266,7 +281,7 @@ def kernel_layout(cfg: Config, open_head: bool = False
 def kernel_bytes(cfg: Config, open_head: bool = False,
                  dtype: str = "float32") -> int:
     """Size of `prepare_params`' buffer for this config and precision."""
-    eb = 2 if check_dtype(dtype) == "bfloat16" else 4
+    eb = 2 if _bf16_weights(dtype) else 4
     return sum(math.prod(s) * (eb if mat else 4)
                for _, s, mat in kernel_layout(cfg, open_head))
 
@@ -279,14 +294,14 @@ def fragment_pack(w: torch.Tensor, dtype: str) -> torch.Tensor:
     """A (K, N) matrix in the order the kernel loads it; the flat bf16 or
     f32 tensor.
 
-    bf16: the order the mma B fragments load -- for each k-tile of 16 rows
-    (m16n8k16), for each pair of 8-column n-tiles, for each lane (g =
+    bf16 (both bf16 precisions): the order the mma B fragments load --
+    for each k-tile of 16 rows (m16n8k16), for each pair of 8-column n-tiles, for each lane (g =
     lane / 4, t = lane % 4), the lane's fragment of both n-tiles, columns g
     of rows 2t, 2t+1, 2t+8, 2t+9 -- 16 bytes a lane, so a warp reads a
     k-tile of its two n-tiles as 512 contiguous bytes.  f32 for the FMA
     core: row-major."""
     K, N = w.shape
-    if dtype == "bfloat16":
+    if _bf16_weights(dtype):
         p = w.reshape(K // 16, 2, 4, 2, N // 16, 2, 8).permute(
             0, 4, 6, 2, 5, 1, 3)          # kt, pair, g, t, n-tile, half, e
         return p.reshape(-1).to(torch.bfloat16)
@@ -297,7 +312,7 @@ def fragment_unpack(v: torch.Tensor, K: int, N: int,
                     dtype: str) -> torch.Tensor:
     """The (K, N) f32 matrix `fragment_pack` packed into `v`."""
     v = v.to(torch.float32)
-    if dtype == "bfloat16":
+    if _bf16_weights(dtype):
         return v.reshape(K // 16, N // 16, 8, 4, 2, 2, 2).permute(
             0, 5, 3, 6, 1, 4, 2).reshape(K, N)
     return v.reshape(K, N)
@@ -314,9 +329,12 @@ def prepare_params(dyn_params: Dict, cfg: Config,
     library loads it (`fragment_pack`): rounded to bf16 in fragment order
     for the bfloat16 library, f32 row-major for the float32 one; the
     vectors -- biases, the attention column, the reward head's gap and
-    distance rows and last columns -- f32, as the TPU kernel keeps them.  embed[0]'s action rows are bf16-rounded for
-    bfloat16: the TPU kernel takes them through a matmul with the one-hot
-    action."""
+    distance rows and last columns -- f32, as the TPU kernel keeps them.
+    embed[0]'s action rows are bf16-rounded for both bf16 precisions (the
+    TPU kernel takes them through a matmul with the one-hot action).  The
+    two bf16 precisions share one buffer: the "dense_bf16" library rounds
+    the f32 vectors it multiplies by (the attention column, the reward
+    head's gap, distance and last-column weights) as it reads them."""
     dtype = check_dtype(dtype)
     kcfg = kernel_config(cfg, dyn_params)
     open_head = has_open_head(cfg, dyn_params)
@@ -334,7 +352,7 @@ def prepare_params(dyn_params: Dict, cfg: Config,
                 x = torch.cat([x, x.new_zeros((shape[0] - x.shape[0],
                                                shape[1]))])
             x = fragment_pack(x, dtype)
-        elif name == "w_e0a" and dtype == "bfloat16":
+        elif name == "w_e0a" and _bf16_weights(dtype):
             x = _bf16_round(x).reshape(-1)
         else:
             x = x.reshape(-1)
@@ -347,7 +365,7 @@ def unpack_params(buf: torch.Tensor, cfg: Config, open_head: bool = False,
     """The segments of a `prepare_params` buffer by name, as f32 tensors of
     `kernel_layout`'s shapes (the inverse of the packing)."""
     dtype = check_dtype(dtype)
-    eb = 2 if dtype == "bfloat16" else 4
+    eb = 2 if _bf16_weights(dtype) else 4
     out, off = {}, 0
     for name, shape, mat in kernel_layout(cfg, open_head):
         n = math.prod(shape) * (eb if mat else 4)
@@ -371,22 +389,23 @@ def rollout_states_reference(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
                              horizon: int,
                              noise: Optional[torch.Tensor] = None,
                              actions: Optional[torch.Tensor] = None,
-                             dtype: str = "float32",
+                             dtype: Optional[str] = None,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """H steps of `dynamics.apply`, mean (noise None) or sampled.
 
     noise: (B, H, O, D) standard normals; sampled steps inject
     mean + (std_open · rollout_sigma_temp) · ε, as `stove.rollout` does.
-    actions: (B, H) or None.  dtype "bfloat16" rounds both operands of
-    every product the TPU kernel's bf16 variant rounds (`dynamics.apply`'s
-    `bf16`).  Returns (states (B, H, O, D), rewards (B, H)).
+    actions: (B, H) or None.  dtype: `dynamics.apply`'s precision (None:
+    cfg.compute_dtype's; "dense_bf16" is then JAX's `stove.rollout` at
+    compute_dtype=bfloat16, "bfloat16" the TPU kernel's variant).
+    Returns (states (B, H, O, D), rewards (B, H)).
     """
-    bf16 = check_dtype(dtype) == "bfloat16"
+    dtype = dyn_lib.check_precision(dtype, cfg)
     zs, rs = [], []
     z = z0
     for t in range(horizon):
         a = None if actions is None else actions[:, t]
-        dyn = dyn_lib.apply(dyn_params, cfg, z, a, bf16=bf16)
+        dyn = dyn_lib.apply(dyn_params, cfg, z, a, dtype)
         z = dyn.mean
         if noise is not None:
             z = z + (dyn.std_open * cfg.rollout_sigma_temp) * noise[:, t]
@@ -416,8 +435,8 @@ def job(cfg: Config, open_head: bool = False, dtype: str = "float32",
         defines += ("-DSTOVE_REW=1",)
     if open_head:
         defines += ("-DSTOVE_OPEN=1",)
-    if check_dtype(dtype) == "bfloat16":
-        defines += ("-DSTOVE_BF16=1",)
+    if BF16_LEVEL[check_dtype(dtype)]:
+        defines += (f"-DSTOVE_BF16={BF16_LEVEL[dtype]}",)
     return ("rollout.cu", defines)
 
 
@@ -448,7 +467,7 @@ def _setup(cfg: Config, open_head: bool, dtype: str):
                 f"kernel_layout {expect}: csrc/dyn_core.cuh and "
                 f"fused_rollout.kernel_layout disagree (each of the action, "
                 f"reward, open-loop and precision variants has its own size)")
-        if lib.stove_rollout_bf16() != (dtype == "bfloat16"):
+        if lib.stove_rollout_bf16() != BF16_LEVEL[dtype]:
             raise RuntimeError("rollout library of the wrong precision")
     return setup
 
@@ -485,7 +504,8 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z0: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Check the inputs, allocate the outputs and launch the kernel once on
     the current stream: (states (B, H, O, D), rewards (B, H)), the rewards
-    zeros without a reward head.  An action-conditioned config takes
+    zeros without a reward head; `dtype` one of `dynamics.PRECISIONS`.  An
+    action-conditioned config takes
     `actions` (B, H) integers on z0's device (zeros when None, as
     `dynamics.apply` does).  `prepared` is `prepare_params(..., dtype)`,
     which picks the library's precision; the tile is `tile_for(B)`.
@@ -553,14 +573,14 @@ def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
             sample: bool = True, generator: Optional[torch.Generator] = None,
             prepared: Optional[torch.Tensor] = None,
             actions: Optional[torch.Tensor] = None,
-            dtype: str = "float32"
+            dtype: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The one device dispatch of the rollout: (states, rewards).
 
     z0: (B, O, 6+cl) f32 → states (B, horizon, O, 6+cl), rewards
     (B, horizon) (the reward head's raw probabilities; zeros without one).
     actions: (B, horizon) integers, read by an action-conditioned config.
-    dtype: "float32" or "bfloat16", the precision of the matmuls.
+    dtype: the precision (`dynamics.PRECISIONS`; None: cfg.compute_dtype's).
     On a CUDA tensor this launches the kernel (building it at first use)
     and raises if it cannot (`check_supported`); a sampled rollout of a
     model with an open-loop std head launches the library with the head.
@@ -570,7 +590,7 @@ def rollout(dyn_params: Dict, cfg: Config, z0: torch.Tensor, horizon: int,
     `rollout_states_reference` at the same precision, with standard
     normals drawn from `generator`.
     """
-    check_dtype(dtype)
+    dtype = dyn_lib.check_precision(dtype, cfg)
     B = z0.shape[0]
     if z0.device.type == "cuda":
         check_supported(cfg, dyn_params)
@@ -599,7 +619,7 @@ def rollout_states(dyn_params: Dict, cfg: Config, z0: torch.Tensor,
                    horizon: int, sample: bool = True,
                    generator: Optional[torch.Generator] = None,
                    prepared: Optional[torch.Tensor] = None,
-                   dtype: str = "float32") -> torch.Tensor:
+                   dtype: Optional[str] = None) -> torch.Tensor:
     """Counterpart of `pallas_rollout.rollout_states`: the rollout's states
     (B, horizon, O, 6+cl) without actions, through `rollout`."""
     return rollout(dyn_params, cfg, z0, horizon, sample, generator,

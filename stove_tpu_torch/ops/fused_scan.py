@@ -10,9 +10,9 @@ the top of the source.
 
 * `scan_reference` is the plain version: the recursion as a Python loop
   (the reference semantics of `_scan_xla`, stove.py:217-302), with all
-  three `velocity_obs` modes, actions and the reward head; `dtype`
-  "bfloat16" rounds the matmul operands as the TPU kernel's bf16 variant
-  does (`dynamics.apply`'s `bf16`).
+  three `velocity_obs` modes, actions and the reward head, at
+  `dynamics.apply`'s precision: by default the one cfg.compute_dtype asks
+  for (JAX's `_scan_xla`), "bfloat16" the TPU kernel's bf16 variant.
 * `launch_kernel` checks its inputs, launches once on the current stream
   and counts its launches (`launch_kernel.launches`); `dtype` picks the
   library, and the weight buffer is packed for it: "float32", or
@@ -21,9 +21,11 @@ the top of the source.
 * `scan_kernel` packs the weights (`prepare_params`) and launches one
   library, bf16 unless told otherwise.
 * `scan_fused` is the dispatch `scan_impl="pallas"` takes, as
-  `_scan_pallas` (stove.py:304-333): the forward in bf16 -- the kernel on
-  CUDA tensors (or it raises), the plain bf16 loop on CPU tensors -- and
-  either way the gradient of the float32 plain version (`ops/_vjp.py`).
+  `_scan_pallas` (stove.py:304-333): the forward in the kernel's bf16
+  whatever compute_dtype is -- the kernel on CUDA tensors (or it raises),
+  the plain loop at "bfloat16" on CPU tensors -- and either way the
+  gradient of the plain version at cfg.compute_dtype (`ops/_vjp.py`), as
+  `_scan_pallas_bwd` differentiates `_scan_xla` at cfg.
   The rewards of the forward are the kernel's: the reward loss is computed
   on them, and its gradient is the plain version's at the same inputs.
 """
@@ -31,7 +33,7 @@ the top of the source.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,24 +49,35 @@ from stove_tpu_torch.ops._vjp import with_plain_vjp
 tile_for = fused_rollout.tile_for
 
 
+def check_kernel_dtype(dtype: str) -> str:
+    """`dtype`, one of the scan libraries' precisions: the TPU kernel's two
+    (`fused_rollout.DTYPES`)."""
+    if dtype not in fused_rollout.DTYPES:
+        raise ValueError(f"scan kernel dtype {dtype!r}: one of "
+                         f"{fused_rollout.DTYPES}")
+    return dtype
+
+
 def scan_reference(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
-                   sup_mean, sup_std, actions, eps, dtype: str = "float32"):
+                   sup_mean, sup_std, actions, eps,
+                   dtype: Optional[str] = None):
     """The posterior recursion as a plain loop over t.
 
     z1 (B, O, D); carry_m/carry_s (B, O, 2); sup_mean/sup_std (B, T2, O, 4)
     for t = 2..T−1; actions (B, T2) = a_{t−1}; eps (B, T2, O, D); dtype
-    "bfloat16" for the TPU kernel's bf16 matmuls.
+    `dynamics.apply`'s precision (None: cfg.compute_dtype's, as
+    `_scan_xla`; "bfloat16" for the TPU kernel's bf16 matmuls).
     Returns (z (B,T2,O,D), z_mean (B,T2,O,D), kl (B,), rewards (B,T2)).
     """
     from stove_tpu_torch.models.stove import align_slots
 
-    bf16 = fused_rollout.check_dtype(dtype) == "bfloat16"
+    dtype = dyn_lib.check_precision(dtype, cfg)
     B, T2 = sup_mean.shape[:2]
     z_prev, prev_sup_m, prev_sup_s = z1, carry_m, carry_s
     zs, zms, rews = [], [], []
     kl = z1.new_zeros((B,))
     for t in range(T2):
-        dyn = dyn_lib.apply(dyn_params, cfg, z_prev, actions[:, t], bf16=bf16)
+        dyn = dyn_lib.apply(dyn_params, cfg, z_prev, actions[:, t], dtype)
         d_mean, d_std = dyn.mean, dyn.std
 
         sm, ss = align_slots(d_mean[..., POS], sup_mean[:, t, :, 2:4],
@@ -145,7 +158,7 @@ def job(cfg: Config, dtype: str = "float32",
         defines += ("-DSTOVE_ACT=1", f"-DSTOVE_NA={cfg.num_actions}")
     if cfg.reward_head:
         defines += ("-DSTOVE_REW=1",)
-    if fused_rollout.check_dtype(dtype) == "bfloat16":
+    if check_kernel_dtype(dtype) == "bfloat16":
         defines += ("-DSTOVE_BF16=1",)
     return ("scan.cu", defines)
 
@@ -199,7 +212,7 @@ def launch_kernel(prepared: torch.Tensor, cfg: Config, z1, carry_m, carry_s,
     reward head.  Counts its launches in `launch_kernel.launches` and, by
     library (its defines, as `job` gives them),
     `launch_kernel.by_library`."""
-    dtype = fused_rollout.check_dtype(dtype)
+    dtype = check_kernel_dtype(dtype)
     ins = [z1, carry_m, carry_s, sup_mean, sup_std, eps]
     _build.check_device(prepared, *ins)
     if any(x.dtype != torch.float32 for x in ins):
@@ -269,10 +282,10 @@ def scan_kernel(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
 def scan_fused(dyn_params: Dict, cfg: Config, z1, carry_m, carry_s,
                sup_mean, sup_std, actions, eps):
     """`scan_impl="pallas"`: same arguments and outputs as
-    `scan_reference`; the forward in bf16, as `_scan_pallas` prepares its
-    weights -- `scan_kernel` on CUDA tensors, the plain bf16 loop on CPU
-    tensors -- and the float32 plain version's gradient on both (as
-    `_scan_pallas_bwd`)."""
+    `scan_reference`; the forward in the kernel's bf16, as `_scan_pallas`
+    prepares its weights -- `scan_kernel` on CUDA tensors, the plain loop
+    at "bfloat16" on CPU tensors -- and on both the gradient of the plain
+    version at cfg.compute_dtype (as `_scan_pallas_bwd`)."""
     template = dyn_params
     n = len(tree.leaves(template))
 

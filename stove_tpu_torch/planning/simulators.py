@@ -8,9 +8,11 @@ through `fused_rollout.rollout`, the port's one dispatch: on the card each
 round launches the rollout kernel twice (the step, H = 1, and the leaf
 evaluation, H = mcts_horizon); on the CPU it runs the plain loop.  As in
 the JAX planner (simulators.py:147-158), `mcts_rollout_impl` sets the
-leaf's precision: "pallas" values leaves with the bfloat16 rollout (the
-TPU kernel's `prepare_params(..., jnp.bfloat16)`), "xla" with float32; the
-step is float32 either way.  `TrueSimulator` does the same on the batched
+leaf's precision: "pallas" values leaves with the TPU kernel's bfloat16
+variant (its `prepare_params(..., jnp.bfloat16)`, whatever compute_dtype
+is), "xla" at compute_dtype's precision (`stove.rollout`: float32, or
+"dense_bf16" under compute_dtype=bfloat16); the step runs at
+compute_dtype's either way.  `TrueSimulator` does the same on the batched
 avoidance physics (the oracle).
 """
 
@@ -58,9 +60,9 @@ class LearnedSimulator(Simulator):
                 "mcts_shrink_mode='tree' needs per-leaf depth inputs, which "
                 "the fused rollout kernel does not take; use "
                 "mcts_rollout_impl='xla' with tree mode.")
-        # the leaves' matmul precision (simulators.py:154)
+        # the leaves' precision (simulators.py:100, :154-159)
         self.leaf_dtype = ("bfloat16" if cfg.mcts_rollout_impl == "pallas"
-                           else "float32")
+                           else model.precision)
 
     def _calibrate(self, q: torch.Tensor) -> torch.Tensor:
         """Undo the class-balanced BCE's distortion (simulators.py:34):

@@ -11,8 +11,10 @@
    rollout.cu and dyn_core.cuh, e.g. `git archive <rev>
    stove_tpu_torch/csrc | tar -x -C build/other` then
    `--other build/other/stove_tpu_torch/csrc`), the same for it.
-2. Over 24 seeded input draws, the bf16 libraries against the plain
-   version at bf16 (states and rewards, steps 1-4): the ratio of the
+2. Over 24 seeded input draws, the bf16 libraries of both bf16
+   precisions (the TPU kernel's variant, "bfloat16", and
+   compute_dtype=bfloat16's "dense_bf16") against the plain version at
+   that precision (states and rewards, steps 1-4): the ratio of the
    largest |kernel - plain bf16| to the largest |plain bf16 - plain f32|
    and the share of entries above 0.1x the latter (tests/bf16_parity.py
    holds both).
@@ -29,6 +31,14 @@
    error sits; then the spread of the plain version's distance over the
    draws.
 
+4. The three precisions' libraries ("float32", "bfloat16", "dense_bf16",
+   the 4-sample tile) at the eval's (100, 8) for billiards and the
+   planner's leaf (576, 10) for avoidance, on seeded inputs: each held
+   bit for bit against the same library built from `--other` (where that
+   version has the precision: its `stove_rollout_bf16()` says which), the
+   distance of each from the plain "dense_bf16" version, and their times
+   in turns.
+
 `--readings 3` runs reading 3 alone (its libraries only).
 
 Times are CUDA events, the best of three interleaved rounds.  Prints one
@@ -39,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import shutil
 import subprocess
 import sys
@@ -46,6 +57,7 @@ from pathlib import Path
 
 import torch
 
+from stove_tpu_torch.models.dynamics import PRECISIONS
 from stove_tpu_torch.ops import _build
 from stove_tpu_torch.ops import fused_rollout as fr
 from stove_tpu_torch.train import checkpoint as ckpt
@@ -180,8 +192,8 @@ def main(argv=None) -> int:
                     help="directory with another version's rollout.cu and "
                          "dyn_core.cuh")
     ap.add_argument("--draws", type=int, default=24)
-    ap.add_argument("--readings", default="1,2,3",
-                    help="comma-separated readings to run (1, 2, 3)")
+    ap.add_argument("--readings", default="1,2,3,4",
+                    help="comma-separated readings to run (1, 2, 3, 4)")
     args = ap.parse_args(argv)
     readings = {int(r) for r in args.readings.split(",")}
     if not torch.cuda.is_available():
@@ -203,6 +215,10 @@ def main(argv=None) -> int:
         for m, (cfg, dyn) in models.items():
             d = fr.job(fr.kernel_config(cfg, dyn), False, "float32", 16)[1]
             jobs[f"{label}_{m}"] = (src, d)
+            if 4 in readings:
+                for dt in PRECISIONS:
+                    jobs[f"{label}_{m}_{dt}"] = (src, fr.job(
+                        fr.kernel_config(cfg, dyn), False, dt, 4)[1])
             if 1 in readings:
                 rep_src = patched(src, f"{label}_rep")
                 for rep in (0, 1, 2):
@@ -218,6 +234,8 @@ def main(argv=None) -> int:
         flip_reading(models, args.draws, dev)
     if 3 in readings:
         criterion_reading(srcs, models, libs, args.draws, dev)
+    if 4 in readings:
+        precision_reading(srcs, models, libs, dev)
     return 0
 
 
@@ -252,29 +270,32 @@ def loop_reading(srcs, models, libs, dev) -> None:
 
 def flip_reading(models, draws: int, dev) -> None:
     """2. bf16 flips over seeded draws"""
-    for m, B in (("billiards", 16384), ("billiards", 100), ("avoidance", 576),
-                 ("avoidance", 16384)):
+    for (m, B), dt in itertools.product(
+            (("billiards", 16384), ("billiards", 100), ("avoidance", 576),
+             ("avoidance", 16384)), ("bfloat16", "dense_bf16")):
+        if dt == "dense_bf16" and B > 1000:
+            continue                  # no path launches it at 16 a block
         cfg, dyn = models[m]
-        prep = fr.prepare_params(dyn, cfg, "bfloat16")
+        prep = fr.prepare_params(dyn, cfg, dt)
         seen = {}
         for seed in range(draws):
             z0 = z0_of(cfg, B, 5 + 100 * seed, dev)
             acts = (torch.randint(0, cfg.num_actions, (B, 4), generator=torch.
                                   Generator().manual_seed(seed)).to(dev)
                     if cfg.action_conditioned else None)
-            s, r = fr.rollout(dyn, cfg, z0, 4, False, None, prep, acts,
-                              "bfloat16")
+            s, r = fr.rollout(dyn, cfg, z0, 4, False, None, prep, acts, dt)
             bs, br = fr.rollout_states_reference(dyn, cfg, z0, 4, None, acts,
-                                                 "bfloat16")
-            fs, frw = fr.rollout_states_reference(dyn, cfg, z0, 4, None, acts)
+                                                 dt)
+            fs, frw = fr.rollout_states_reference(dyn, cfg, z0, 4, None, acts,
+                                                  "float32")
             seen.setdefault("states", []).append(flips(s, bs, fs))
             if cfg.reward_head:
                 seen.setdefault("rewards", []).append(
                     flips(r[..., None], br[..., None], frw[..., None]))
         for what, v in seen.items():
-            print(f"flips {m} B={B} {what} over {draws} draws: ratio of "
-                  f"the maxima {spread([x[0] for x in v])}; share of moved "
-                  f"entries {spread([x[1] for x in v])}", flush=True)
+            print(f"flips {dt} {m} B={B} {what} over {draws} draws: ratio "
+                  f"of the maxima {spread([x[0] for x in v])}; share of "
+                  f"moved entries {spread([x[1] for x in v])}", flush=True)
 
 
 
@@ -341,6 +362,41 @@ def criterion_reading(srcs, models, libs, draws: int, dev) -> None:
               f"float32 distance from float64 over the draws: states "
               f"{spread(plain_d['states'])}, rewards "
               f"{spread(plain_d['rewards'])}", flush=True)
+
+
+def precision_reading(srcs, models, libs, dev) -> None:
+    """4. the three precisions, bit for bit against another version"""
+    for m, B, H in (("billiards", 100, 8), ("avoidance", 576, 10)):
+        cfg, dyn = models[m]
+        kcfg = fr.kernel_config(cfg, dyn)
+        z0 = z0_of(cfg, B, 9, dev)
+        acts = (torch.randint(0, cfg.num_actions, (B, H), generator=torch.
+                              Generator().manual_seed(9)).to(dev, torch.int32)
+                if cfg.action_conditioned else None)
+        ref, _ = fr.rollout_states_reference(dyn, cfg, z0, H, None, acts,
+                                             "dense_bf16")
+        for dt in PRECISIONS:
+            buf = fr.prepare_params(dyn, cfg, dt)
+            out = {}
+            for label in srcs:
+                lib = libs[f"{label}_{m}_{dt}"]
+                lib.stove_rollout_bf16.restype = ctypes.c_int
+                if lib.stove_rollout_bf16() != fr.BF16_LEVEL[dt]:
+                    print(f"precision {label} {m} {dt}: that version has no "
+                          "such library", flush=True)
+                    continue
+                out[label] = launch(lib, buf, kcfg, z0, acts, H, False)
+                ms = best_ms(lambda: launch(lib, buf, kcfg, z0, acts, H,
+                                            False), iters=20)
+                d = (out[label][0] - ref).abs().max().item()
+                print(f"precision {label} {m} {dt} B={B} H={H}: {ms:.4f} ms; "
+                      f"max |kernel - plain dense_bf16| {d:.3e}", flush=True)
+            if len(out) == 2:
+                a, b = out.values()
+                same = all(torch.equal(x, y) for x, y in zip(a, b))
+                print(f"precision {m} {dt}: this and other bit for bit "
+                      f"{same}, max diff "
+                      f"{(a[0] - b[0]).abs().max().item():.3e}", flush=True)
 
 
 def fr_z0(cfg, B: int, dev):

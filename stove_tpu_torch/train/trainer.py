@@ -11,8 +11,21 @@ Differences from the reference, all deliberate:
 * Steps run one at a time, eagerly.  `fused_epoch` (the reference's whole
   epoch as one jitted scan) does nothing here; the kernels are where the
   port fuses work.
-* One device.  A config that asks for more (`mesh_shape` > 1) raises: data
-  parallelism (`parallel/mesh.py`) is not ported yet.
+* Data parallelism is one process per device (`parallel/mesh.py`,
+  launched by `torch.distributed.run`), where the reference shards one
+  jitted step over a mesh.  The step computes the same global function:
+  every rank samples the whole window batch and draws the whole batch's
+  ELBO noise from the same generators, takes its rows (`Mesh.rows`),
+  weights its shard's loss by its share of the batch (`Mesh.share`; ranks
+  along a second mesh axis hold the same rows; the balanced reward
+  BCE's batch rate from the whole batch's rewards), and the gradients
+  and metrics are summed over the ranks in one all-reduce before the
+  optimizer's clip and update, which every rank applies.  A batch the
+  mesh does not divide is sharded over the largest mesh size that does
+  (JAX trainer.py:137-143); the ranks beyond it sit the step out, adding
+  zeros to the all-reduce.  Only rank 0 writes the run directory (config,
+  SPN seeds, metrics, checkpoints, GIFs); every rank evaluates and
+  restores.
 * Randomness comes from torch.Generators: window sampling from one on the
   corpus's device (seeded cfg.seed + 2), the ELBO's normals from one on
   the CPU (seeded cfg.seed + 3).  A resumed run cannot continue the JAX
@@ -36,7 +49,6 @@ import math
 import os
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from stove_tpu_torch import tree
@@ -46,11 +58,16 @@ from stove_tpu_torch.envs import data as data_lib
 from stove_tpu_torch.models import supair as supair_lib
 from stove_tpu_torch.models import stove as stove_lib
 from stove_tpu_torch.models.bundle import StoveModel
+from stove_tpu_torch.parallel import mesh as mesh_lib
 from stove_tpu_torch.train import checkpoint as ckpt_lib
 from stove_tpu_torch.train import evaluate as eval_lib
 from stove_tpu_torch.train.metrics import MetricsLogger
 
 GROUPS = ("dynamics", "supair")
+# the metrics of each kind of step, in the order they are all-reduced
+TRAIN_METRICS = ("loss", "elbo", "log_lik", "kl", "reward_loss", "overshoot",
+                 "overshoot_reward", "open_sigma_nll")
+SUPAIR_METRICS = ("loss", "supair_ll", "mean_scale")
 # the repository's committed run directories: read, never written
 COMMITTED_RUNS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "ckpts")
@@ -168,21 +185,25 @@ class Trainer:
 
     def __init__(self, cfg: Config, run_dir: Optional[str] = None,
                  device=None):
-        if int(np.prod(cfg.mesh_shape)) > 1:
-            raise NotImplementedError(
-                f"not ported yet: mesh_shape={cfg.mesh_shape} asks for more "
-                "than one device (data parallelism, parallel/mesh.py); the "
-                "port trains on one")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh_lib.for_batch(mesh_lib.make_mesh(cfg),
+                                       cfg.batch_size)
+        self.writes = self.mesh.rank == 0 and not cfg.nolog
         self.run_dir = run_dir or os.path.join(cfg.run_dir, cfg.run_name)
         if not cfg.nolog:
             check_run_dir(self.run_dir)
-        self.logger = MetricsLogger(None if cfg.nolog else self.run_dir)
+        self.logger = MetricsLogger(self.run_dir if self.writes else None,
+                                    echo=self.mesh.rank == 0)
 
         dev = self.device
+        # rank 0 finds or writes the corpora, the others read them after
+        if self.mesh.rank > 0:
+            mesh_lib.barrier()
         self.train_ep = data_lib.ensure_dataset(cfg, "train", dev)
         self.test_ep = data_lib.ensure_dataset(cfg, "test", dev)
+        if self.mesh.rank == 0:
+            mesh_lib.barrier()
         if (cfg.action_conditioned and cfg.reward_balanced_loss
                 and cfg.reward_pos_rate == 0.0):
             rate = float(torch.mean(self.train_ep.rewards))
@@ -192,11 +213,12 @@ class Trainer:
         seeds = (supair_lib.run_spec_seeds(cfg.restore, cfg)
                  if cfg.restore is not None
                  else supair_lib.draw_spec_seeds(cfg))
-        if not cfg.nolog:
+        if self.writes:
             ckpt_lib.save_config(self.run_dir, cfg)
             supair_lib.save_spec_seeds(self.run_dir, seeds)
         self.model = StoveModel(cfg, device=dev, seeds=seeds)
         self.params = self.model.params
+        mesh_lib.replicate(tree.leaves(self.params))
         for leaf in tree.leaves(self.params):
             leaf.requires_grad_(True)
         self.optimizer = Optimizer(cfg)
@@ -218,47 +240,76 @@ class Trainer:
         self.noise_gen = torch.Generator().manual_seed(seed + 3)
 
     # ------------------------------------------------------------- steps
-    def _apply(self, loss: torch.Tensor) -> torch.Tensor:
+    def _apply(self, loss: Optional[torch.Tensor],
+               metrics: Dict[str, torch.Tensor], keys, share: float
+               ) -> Dict[str, torch.Tensor]:
+        """The gradient of `share` x this rank's `loss` and its `metrics`
+        (None and zeros on a rank that sits out), summed over the ranks in
+        one all-reduce, then one optimizer step; returns the batch's
+        metrics with the gradients' global norm."""
         leaves = tree.leaves(self.params)
-        got = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree.unflatten(self.params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, got)])
+        got = ([None] * len(leaves) if loss is None else
+               torch.autograd.grad(loss * share, leaves, allow_unused=True))
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, got)]
+        vals = [metrics[k].detach() * share if loss is not None
+                else torch.zeros((), device=self.device) for k in keys]
+        summed = mesh_lib.all_reduce_sum(grads + vals)
+        grads = tree.unflatten(self.params, summed[:len(leaves)])
         norm = self.optimizer.update(self.params, grads, self.opt_state)
         self.step += 1
-        return norm
+        return dict(zip(keys, summed[len(leaves):]), grad_norm=norm)
 
     def train_step(self, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        """One ELBO step (trainer.py:172-194); metrics as 0-d tensors."""
+        """One ELBO step (trainer.py:172-194) on this rank's rows of the
+        batch; the batch's metrics as 0-d tensors."""
         cfg = self.cfg
         ac = cfg.action_conditioned
         frames = batch["frames"]
-        noise = stove_lib.draw_elbo_noise(cfg, frames.shape[0],
-                                          frames.shape[1], self.noise_gen,
-                                          frames.device)
-        out = self.model.elbo(self.params, frames,
-                              batch["actions"] if ac else None,
-                              batch["rewards"] if ac else None, noise)
-        norm = self._apply(out.loss)
-        return {"loss": out.loss, "elbo": out.elbo, "log_lik": out.log_lik,
-                "kl": out.kl, "reward_loss": out.reward_loss,
-                "overshoot": out.overshoot_loss,
-                "overshoot_reward": out.overshoot_reward_loss,
-                "open_sigma_nll": out.open_sigma_nll, "grad_norm": norm}
+        B = frames.shape[0]
+        noise = stove_lib.draw_elbo_noise(cfg, B, frames.shape[1],
+                                          self.noise_gen, frames.device)
+        rows = self.mesh.rows(B)
+        out, metrics = None, {}
+        if self.mesh.active:
+            f, a, r = mesh_lib.shard_batch(
+                self.mesh, [frames, batch["actions"] if ac else None,
+                            batch["rewards"] if ac else None], B)
+            out = self.model.elbo(self.params, f, a, r,
+                                  stove_lib.noise_rows(noise, rows, B),
+                                  batch_rewards=batch["rewards"] if ac
+                                  else None)
+            metrics = dict(zip(TRAIN_METRICS, (
+                out.loss, out.elbo, out.log_lik, out.kl, out.reward_loss,
+                out.overshoot_loss, out.overshoot_reward_loss,
+                out.open_sigma_nll)))
+        return self._apply(None if out is None else out.loss, metrics,
+                           TRAIN_METRICS, self.mesh.share(B))
 
     def supair_step(self, batch: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
         """SuPAIR-only warm-up step on the window's frames
-        (trainer.py:196-212)."""
+        (trainer.py:196-212), this rank's windows' frames."""
         cfg = self.cfg
+        B = batch["frames"].shape[0]
         frames = batch["frames"].reshape(-1, cfg.img_size, cfg.img_size)
         noise = torch.randn((frames.shape[0], cfg.num_obj, 4),
                             generator=self.noise_gen).to(frames.device)
-        value, diag = self.model.supair_elbo(self.params, frames, noise)
-        self._apply(-value)
-        return {"loss": -diag["supair_ll"], "supair_ll": diag["supair_ll"],
-                "mean_scale": diag["boxes_mean_scale"]}
+        rows = self.mesh.rows(B)
+        T = frames.shape[0] // B
+        frame_rows = slice(rows.start * T, rows.stop * T)
+        value, metrics = None, {}
+        if self.mesh.active:
+            value, diag = self.model.supair_elbo(
+                self.params, frames[frame_rows], noise[frame_rows])
+            metrics = {"loss": -diag["supair_ll"],
+                       "supair_ll": diag["supair_ll"],
+                       "mean_scale": diag["boxes_mean_scale"]}
+        out = self._apply(None if value is None else -value, metrics,
+                          SUPAIR_METRICS, self.mesh.share(B))
+        del out["grad_norm"]
+        return out
 
     def steps_per_epoch(self) -> int:
         if self.cfg.steps_per_epoch:
@@ -313,7 +364,7 @@ class Trainer:
                   f"{epoch}: recognition/tracking handoff failure signature "
                   "— this seed is unlikely to recover; consider restarting "
                   "with a different seed", flush=True)
-        if not cfg.nolog:
+        if self.writes:
             try:
                 self._dump_gif(epoch)
             except OSError as e:       # a full disk must not end training
@@ -357,9 +408,9 @@ class Trainer:
             result.update(self.train_epoch(epoch))
             if (epoch + 1) % cfg.eval_every == 0:
                 result.update(self.evaluate(epoch))
-            if not cfg.nolog and (epoch + 1) % cfg.ckpt_every == 0:
+            if self.writes and (epoch + 1) % cfg.ckpt_every == 0:
                 self.save(epoch)
-        if not cfg.nolog:
+        if self.writes:
             self.save(cfg.num_epochs - 1)
         return result
 

@@ -355,13 +355,15 @@ def test_eval_band_from_the_jax_package(run, eval_corpus, capsys, tmp_path):
 # ---------------------------------------------------------------- repairs
 
 def test_bfloat16_compute_dtype_raises(tmp_path):
+    """compute_dtype=bfloat16 was refused until the port computed it; now
+    the model builds at its precision and the entry point trains with it
+    (tests/test_torch_compute_bf16.py holds it to the JAX package)."""
     cfg = Config().debug_shrunk().with_overrides(compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        StoveModel(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        tmain.main(["preset=stove_billiards", "debug=true",
-                    "compute_dtype=bfloat16", "device=cpu", "nolog=true",
-                    f"data_dir={tmp_path}"])
+    assert StoveModel(cfg, device="cpu").precision == "dense_bf16"
+    assert tmain.main(["preset=stove_billiards", "debug=true",
+                       "compute_dtype=bfloat16", "device=cpu", "nolog=true",
+                       "num_epochs=1", "supair_only_epochs=0",
+                       "steps_per_epoch=1", f"data_dir={tmp_path}"]) == 0
 
 
 def test_eval_corpus_is_the_trainers_test_split(tmp_path, monkeypatch):

@@ -154,14 +154,15 @@ def _close_to_scale(got, want, name, rel):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: compute_dtype=bfloat16 (ROADMAP Queue 1
-    item 4).  Where the JAX package raises, the port raises the same error
-    before anything runs: the fused likelihood with the image-space claim
-    weights (supair.py:149-154), an SPN impl it does not know."""
+    """Where the JAX package raises, the port raises the same error before
+    anything runs: the fused likelihood with the image-space claim weights
+    (supair.py:149-154), an SPN impl it does not know.  compute_dtype=
+    bfloat16, once refused here, builds (tests/test_torch_compute_bf16.py
+    holds it to the JAX package)."""
     jc, tc, jspecs, tspecs, jp, tp, frames, boxes = _shrunk()
     from stove_tpu_torch.models.bundle import StoveModel
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        StoveModel(tc.with_overrides(compute_dtype="bfloat16"), device="cpu")
+    assert StoveModel(tc.with_overrides(compute_dtype="bfloat16"),
+                      device="cpu").precision == "dense_bf16"
     with pytest.raises(ValueError, match="unknown spn_impl"):
         tsup.likelihood(tp, tc.with_overrides(spn_impl="sparse"), tspecs,
                         _t(frames), _t(boxes))

@@ -185,7 +185,8 @@ def test_debug_train_run_through_the_entry_point(tmp_path):
 
 def test_trainer_refuses_what_it_does_not_do(tmp_path):
     tc = tmain.build_config(["preset=stove_billiards", *SHRUNK])[0]
-    with pytest.raises(NotImplementedError, match="data parallelism"):
+    # a mesh larger than the world (one process, no torch.distributed.run)
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         ttrainer.Trainer(tc.with_overrides(mesh_shape=(2,)), device="cpu")
     with pytest.raises(ValueError, match="committed checkpoint store"):
         ttrainer.Trainer(tc.with_overrides(run_dir="ckpts"), device="cpu")
