@@ -29,7 +29,8 @@ avoidance model, `mode=profile` -- and holds the SuPAIR settings
 `compute_dtype=bfloat16` on every path (the rollout library's third
 precision, "dense_bf16", against its plain version, bf16 eval of the three
 models, bf16 training) and data parallelism on the one card (NCCL at world
-1, two ranks over gloo).  Every phase
+1, two ranks over gloo), and the fused epoch: a training step captured
+as a CUDA graph and replayed, against the step loop.  Every phase
 that reads a corpus gets a fresh `data_dir`.  Training with `scan_impl=pallas` runs the scan's bf16
 library forward, as the JAX package's `_scan_pallas` does.  One line per
 phase, with the seconds since start:
@@ -76,7 +77,10 @@ phase, with the seconds since start:
                   the frames move by 1e-5); mixture logits: 1e-6 absolute,
                   their scale being 1
   (10) resume     restore=ckpts/r4rp_bill_s32 mode=train num_epochs=361
-                  through the kernels: 20 steps, mean elbo in [1197, 1248],
+                  through the kernels and the fused epoch (fused_epoch=true:
+                  the run's config.json has false): 20 steps, 19 of them
+                  graph replays, 20 scan launches (the capture counted
+                  as none), mean elbo in [1197, 1248],
                   kl in [-10.5, -7.5] (the JAX package's own float32 value
                   on these weights, see there), overshoot < 0.02, nothing
                   written under ckpts/
@@ -132,7 +136,7 @@ phase, with the seconds since start:
                   limits and floor, the reward heads' and action rows'
                   nonzero
   (19) avoid-resume restore=ckpts/r4a_dense_s2 mode=train for 20 steps
-                  through the kernels: mean elbo, kl and reward_loss inside
+                  through the kernels and the fused epoch: mean elbo, kl and reward_loss inside
                   AVOID_RESUME_BAND (the JAX package's float32 values at
                   those weights on the port's corpus); nothing written under
                   ckpts/
@@ -157,7 +161,8 @@ phase, with the seconds since start:
                   path's, within the range of 8 plain draws widened by its
                   width; launches by shape
   (22) grav-train restore=ckpts/r4rp_grav_s32 mode=train from step 5200, 20
-                  steps through the kernels and the Trainer's evaluation
+                  steps through the kernels and the fused epoch, and the
+                  Trainer's evaluation
                   (eval_every=1: its sampled 80-step rollouts launch the
                   open-head library): mean elbo, kl, overshoot and
                   open_sigma_nll inside GRAV_RESUME_BAND; nothing written
@@ -268,11 +273,42 @@ phase, with the seconds since start:
                   ranks on one device): the sharded loss within rel 1e-4
                   of one device's; mesh_shape=(2,) in one process raises
 
+  (35) fused-epoch the fused epoch (fused_epoch=true, the default on the
+                  card: the epoch's first step eager, one step captured as
+                  a CUDA graph, the rest replays) against the step loop
+                  (fused_epoch=false) from the same initial state and
+                  generator seeds: preset=stove_billiards at batch 256
+                  (only the corpus cut), a SuPAIR warm-up epoch and a STOVE
+                  epoch of 6 steps each, on the kernel path (scan_impl,
+                  likelihood_impl and spn_impl pallas) and the plain path;
+                  preset=stove_avoidance on both; billiards at
+                  compute_dtype=bfloat16 on the kernel path; and at NCCL
+                  world 1 (a spawned rank, as (34)), each under cuDNN's
+                  deterministic algorithms (its default convolution
+                  backward sums with atomics: two step loops differ):
+                  parameters, optimizer state and every step's metrics bit
+                  for bit, or within 2x the distance between two step-loop
+                  runs (both printed); billiards' kernel path again at the
+                  default settings over 5 fused and 5 step-loop runs: the
+                  mean distance of a fused run from a step loop within 2x
+                  the mean distance between two runs of one setting;
+                  the card test of tests/test_torch_fused_epoch.py (one
+                  capture and 3 replays against 3 eager steps); the STOVE
+                  step of the fused epoch and of the step loop at B=256,
+                  kernel and plain paths, best of two in turns (loop,
+                  fused, fused, loop), ms a step beside the card's name and
+                  power limit; the device busy share of 3 replayed and of
+                  3 eager steps (utils/profiling.py); one eager call of the
+                  step body under torch.cuda.set_sync_debug_mode("error")
+
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the kernel table (JSON; one entry per library,
 its launches counted on the main paths -- every run through the entry
-points and phase (5)'s throughput measurement -- by the wrappers' counts
-by library), the card's name and power limit, and the result JSON.
+points, (35)'s training runs and phase (5)'s throughput measurement -- by
+the wrappers' counts by library, where a captured step's capture counts
+as no launch and each replay adds what the capture launched; the
+replays' share, all of it on the main paths, also alone as "replayed"),
+the card's name and power limit, and the result JSON.
 Writes nothing into the repository but the git-ignored build directory;
 runs and corpora go to temporary directories.  Imports nothing of JAX or
 the JAX package.
@@ -284,6 +320,7 @@ import contextlib
 import functools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -325,6 +362,9 @@ GRAV_RESUME_BAND = {"elbo": (1110.0, 1163.0), "kl": (-21.6, -8.0),
 # recomputes the draws and checks these bands on the CPU).
 BF16_EVAL_BANDS = {"billiards": {"mse_final": (0.0070, 0.0112)},
                    "gravity": {"mse_final": (0.0046, 0.0073)}}
+# (35) at cuDNN's defaults: the fused-epoch runs and the step-loop runs
+# whose distances are compared by their means
+SPREAD_RUNS = (5, 5)
 BUDGET_S = 240.0          # start the optional B=65536 timing only before this
 # the scan's velocity modes besides the trained models' (mode 2), held with
 # random weights in phase (8) and timed in phase (26)
@@ -626,6 +666,7 @@ def main() -> int:
     five = fifth_slice(card, dev, model, z_post)
     six = sixth_slice(card, dev, model)
     seven = seventh_slice(card, dev, model, z_post, five.pop("posteriors"))
+    eight = fused_epoch_slice(card, dev)
 
     # one entry per kernel library: the TPU kernel it replaces, its
     # launches on the main paths (every run through the entry points, and
@@ -641,6 +682,7 @@ def main() -> int:
              "likelihood.cu": ("likelihood_pack",
                                "stove_tpu/ops/pallas_likelihood.py:176")}
     kernels = []
+    replayed = replayed_counts()
     for (src, defines) in jobs:
         key = lib_key((src, defines))
         f = LIBS.get(key, {})
@@ -656,7 +698,8 @@ def main() -> int:
         kernels.append({
             "name": f"{name}[{d}]", "route": "cuda",
             "source": f"stove_tpu_torch/csrc/{src}", "replaces": rep,
-            "launches": launches, "max_abs_err": f["err"], "ms": f["ms"],
+            "launches": launches, "replayed": replayed.get(key, 0),
+            "max_abs_err": f["err"], "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": b_ms, "bound_by": by,
             "library_ms": None, "shape": f.get("shape"),
             "ptxas": f.get("ptxas"), "smem_bytes": f.get("smem_bytes"),
@@ -674,6 +717,7 @@ def main() -> int:
                 "source": f"stove_tpu_torch/csrc/{src}",
                 "replaces": packs[src][1],
                 "launches": MAIN_PATH.get(key + " pack", 0),
+                "replayed": replayed.get(key + " pack", 0),
                 "max_abs_err": pk["err"], "ms": pk["ms"],
                 "plain_ms": pk["plain_ms"], "bound_ms": b_ms,
                 "bound_by": by, "library_ms": None,
@@ -704,7 +748,7 @@ def main() -> int:
         "gravity_eval_sampled": four["grav_eval_sampled"],
         "gravity_resume": four["grav_resume"],
         "rollout_timing": five["timing"], "sixth_slice": six,
-        "seventh_slice": seven,
+        "seventh_slice": seven, "fused_epoch": eight,
         "throughput_ms": {"float32": times[B], "bfloat16": times["bf16"]}},
         default=str))
     print(card)
@@ -792,24 +836,18 @@ def note(job, **fields) -> None:
 
 
 def library_counts() -> dict:
-    """Every wrapper's launch counts by library; the SPN and likelihood
-    libraries' packing kernels under the library's key + " pack"."""
-    from stove_tpu_torch.ops import fused_likelihood as flik
-    from stove_tpu_torch.ops import fused_rollout as fr
-    from stove_tpu_torch.ops import fused_scan as fscan
-    from stove_tpu_torch.ops import fused_spn as fspn
-    out = {f"rollout.cu {k}": v for k, v in fr.launch_kernel.by_library.items()}
-    out.update({f"scan.cu {k}": v
-                for k, v in fscan.launch_kernel.by_library.items()})
-    out.update({f"spn.cu {k}": v
-                for k, v in fspn.launch_kernel.by_library.items()})
-    out.update({f"likelihood.cu {k}": v
-                for k, v in flik.launch_kernel.by_library.items()})
-    out.update({f"spn.cu {k} pack": v
-                for k, v in fspn.prepare.by_library.items()})
-    out.update({f"likelihood.cu {k} pack": v
-                for k, v in flik.prepare.by_library.items()})
-    return out
+    """Every wrapper's launch counts by library (`ops/launches.py`; a
+    captured step's replays included); the SPN and likelihood libraries'
+    packing kernels under the library's key + " pack"."""
+    from stove_tpu_torch.ops import launches
+    return launches.by_library()
+
+
+def replayed_counts() -> dict:
+    """The launches CUDA graph replays made, by library (keys as
+    `library_counts`'); all of them are in `library_counts` too."""
+    from stove_tpu_torch.ops import launches
+    return dict(launches.REPLAYED)
 
 
 def counted_since(snap: dict) -> dict:
@@ -1321,14 +1359,18 @@ def training_slice(card: str, dev, cfg, model) -> dict:
     # restored weights and its own training corpus, gives about -9.1
     # (tests/test_torch_resume.py measures it), so kl is held to
     # [-10.5, -7.5] around the reference's own value; overshoot < 0.02.
+    # The committed runs were trained with fused_epoch=false (their
+    # config.json), so this resume and (19), (22) set the port's default,
+    # the fused epoch: a warm-up step, a capture, 19 replays.
     before = {p: os.path.getmtime(p) for p in
               [os.path.join(RUN, f) for f in os.listdir(RUN)]}
     zero()
+    replayed = replayed_counts()
     t = time.perf_counter()
     cfg_r, _, dev_r = entry.build_config(
         [f"restore={RUN}", "mode=train", "scan_impl=pallas",
          "likelihood_impl=pallas", "num_epochs=361", f"run_dir={tmp}",
-         fresh_data()])
+         fresh_data(), "fused_epoch=true"])
     tr_r, _ = entry.run_train(cfg_r, dev_r)
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t
@@ -1345,6 +1387,11 @@ def training_slice(card: str, dev, cfg, model) -> dict:
           f"{n_lik_r}; wrote {tr_r.run_dir}; elbo by step "
           + " ".join(f"{s['elbo']:.1f}" for s in steps))
     check(len(steps) == 20, "20 resumed steps")
+    # one scan launch a step, the capture's counted as none
+    check(n_scan_r == 20, f"20 scan launches in the resume, not {n_scan_r}")
+    check(sum(v - replayed.get(k, 0) for k, v in replayed_counts().items()
+              if k.startswith("scan.cu") and not k.endswith(" pack")) == 19,
+          "the resume replayed its captured step 19 times")
     check(1197.0 <= mean["elbo"] <= 1248.0, f"resume elbo {mean['elbo']}")
     check(-10.5 <= mean["kl"] <= -7.5, f"resume kl {mean['kl']}")
     check(max(s["overshoot"] for s in steps) < 0.02, "resume overshoot")
@@ -2113,7 +2160,7 @@ def fourth_slice(card: str, dev) -> dict:
     cfg_r, _, dev_r = entry.build_config(
         [f"restore={AVOID}", "mode=train", "scan_impl=pallas",
          "likelihood_impl=pallas", f"num_epochs={acfg.num_epochs + 1}",
-         f"run_dir={tmp}", fresh_data()])
+         f"run_dir={tmp}", fresh_data(), "fused_epoch=true"])
     tr_r, _ = entry.run_train(cfg_r, dev_r)
     torch.cuda.synchronize()
     n = counts()
@@ -2322,7 +2369,8 @@ def fourth_slice(card: str, dev) -> dict:
     cfg_g, _, dev_g = entry.build_config(
         [f"restore={GRAV}", "mode=train", "scan_impl=pallas",
          "likelihood_impl=pallas", f"num_epochs={gcfg.num_epochs + 1}",
-         "eval_every=1", f"run_dir={tmp}", fresh_data()])
+         "eval_every=1", f"run_dir={tmp}", fresh_data(),
+         "fused_epoch=true"])
     with recording_rollouts(shapes):
         tr_g, res_g = entry.run_train(cfg_g, dev_g)
         torch.cuda.synchronize()
@@ -3394,6 +3442,268 @@ def seventh_slice(card: str, dev, model, z_post, posts) -> dict:
         raised = str(e)
     phase("parallel", f"mesh_shape=(2,) in one process: {raised}")
     check("torch.distributed.run" in raised, "a mesh above the world raises")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the eleventh slice: the fused epoch (one captured step, replayed)
+# ---------------------------------------------------------------------------
+
+def run_distance(a: dict, b: dict) -> float:
+    """The distance between two training runs (`dryrun.train_epochs`):
+    the largest of each metric's largest difference over every step
+    relative to its largest value, and the relative L2 distances of the
+    parameters and of the optimizer state (each flattened into one
+    vector)."""
+    import torch
+    worst = 0.0
+    for x, y in zip(a["rows"], b["rows"]):
+        x, y = x.double(), y.double()
+        scale = y.abs().max(0).values.clamp_min(1e-30)
+        worst = max(worst, ((x - y).abs().max(0).values / scale).max().item())
+    for part in (slice(0, a["n_params"]), slice(a["n_params"], None)):
+        x = torch.cat([t.double().reshape(-1) for t in a["state"][part]])
+        y = torch.cat([t.double().reshape(-1) for t in b["state"][part]])
+        worst = max(worst, ((x - y).norm() / y.norm().clamp_min(1e-30))
+                    .item())
+    return worst
+
+
+def run_pairs(runs: list) -> list:
+    return [(a, b) for i, a in enumerate(runs) for b in runs[i + 1:]]
+
+
+def bitwise(a: dict, b: dict) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a["rows"] + a["state"],
+                                                  b["rows"] + b["state"]))
+
+
+def deterministic_runs(rank, device, cfg_jsons, epochs):
+    """`dryrun.train_epochs` of each config in turn with cuDNN's
+    deterministic algorithms, in a spawned rank (a process of its own
+    sets its own flag)."""
+    import torch
+    from stove_tpu_torch.parallel import dryrun
+    torch.backends.cudnn.deterministic = True
+    return [dryrun.train_epochs(rank, device, c, epochs) for c in cfg_jsons]
+
+
+@contextlib.contextmanager
+def on_main_path():
+    """Within the block, every kernel launch is added to MAIN_PATH, as
+    `count_main_paths` adds an entry point's."""
+    snap = library_counts()
+    try:
+        yield
+    finally:
+        for key, v in counted_since(snap).items():
+            MAIN_PATH[key] = MAIN_PATH.get(key, 0) + v
+
+
+def training_runs(dev, tokens: list, n_fused: int, n_loop: int,
+                  nccl: bool = False, deterministic: bool = True):
+    """`dryrun.train_epochs` (2 epochs) of `n_fused` runs of the config
+    `tokens` with fused_epoch=true, then `n_loop` with fused_epoch=false:
+    the same initial state and generator seeds in each.  With `nccl`, in
+    one spawned rank of a process group of one (cuDNN deterministic);
+    else here, under cuDNN's deterministic algorithms or its defaults, the
+    launches added to MAIN_PATH.  Returns the fused runs and the loops."""
+    import torch
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch.envs import data as data_lib
+    from stove_tpu_torch.parallel import dryrun
+
+    cfgs = [entry.build_config(tokens + [f"fused_epoch={f}"])[0]
+            for f in ["true"] * n_fused + ["false"] * n_loop]
+    jsons = [c.to_json() for c in cfgs]
+    for split in ("train", "test"):       # every run reads the files
+        data_lib.ensure_dataset(cfgs[0], split, dev)
+    if nccl:
+        runs = dryrun.spawn(deterministic_runs, 1, jsons, 2,
+                            device="cuda")[0]
+    else:
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            with on_main_path():
+                runs = [dryrun.train_epochs(0, dev, c, 2) for c in jsons]
+        finally:
+            torch.backends.cudnn.deterministic = False
+    return runs[:n_fused], runs[n_fused:]
+
+
+def fused_epoch_slice(card: str, dev) -> dict:
+    import os
+    import subprocess
+    import tempfile
+
+    import torch
+    from stove_tpu_torch import main as entry
+    from stove_tpu_torch.train.trainer import Trainer
+    from stove_tpu_torch.utils import profiling
+
+    out = {}
+    kernel = ["scan_impl=pallas", "likelihood_impl=pallas",
+              "spn_impl=pallas"]
+
+    # ---- (35) fused-epoch: the fused epoch (fused_epoch=true, the
+    # default: a warm-up step, then one STOVE or SuPAIR step captured as a
+    # CUDA graph and replayed) against the step loop (fused_epoch=false)
+    # from the same initial state and generator seeds, 2 epochs of 6 steps
+    # (a SuPAIR warm-up epoch, then the ELBO) at the published batch (256),
+    # only the corpus cut (`training_runs`).  cuDNN's default convolution
+    # backward sums with atomics, so two step loops differ in their last
+    # bits from the first steps on and training then moves them apart;
+    # with its deterministic algorithms (cudnn.deterministic) the fused
+    # epoch (one run) is held to the step loop (two runs) on parameters,
+    # optimizer state and every step's metrics bit for bit, or within 2x
+    # the distance between the two step-loop runs (run_distance; both
+    # printed).  At the default settings, billiards' kernel path once more,
+    # from SPREAD_RUNS fused and step-loop runs: the mean distance of a
+    # fused run from a step-loop run at most 2x the mean distance between
+    # two runs of one setting (two fused runs or two step loops).  Each
+    # pair's distance is a draw: some runs land several times further from
+    # all the others than the rest do, and two runs may land close
+    # together, so one pair against a few others (this check's first
+    # form) failed with no defect; an outlying run adds to both means
+    # alike.
+    def hold(label, preset, extra, nccl=False, deterministic=True):
+        tokens = [f"preset={preset}", "num_train=64", "num_test=32",
+                  "num_epochs=2", "steps_per_epoch=6",
+                  "supair_only_epochs=1", "nolog=true", fresh_data(),
+                  *extra]
+        n_fused, n_loop = (1, 2) if deterministic else SPREAD_RUNS
+        t = time.perf_counter()
+        fused, loops = training_runs(dev, tokens, n_fused, n_loop,
+                                     nccl=nccl, deterministic=deterministic)
+        check(all(r["fused"] and r["captured"] == ["stove", "supair"]
+                  for r in fused)
+              and not any(r["fused"] or r["captured"] for r in loops),
+              f"{label}: the fused runs captured both steps, the loops none")
+        check(all(r["step"] == 12 for r in fused + loops),
+              f"{label}: 12 steps")
+        cross = [(f, lp) for f in fused for lp in loops]
+        same = all(bitwise(a, b) for a, b in cross)
+        same_loops = all(bitwise(a, b) for a, b in run_pairs(loops))
+        d_fused = sorted(run_distance(a, b) for a, b in cross)
+        d_loop = sorted(run_distance(a, b) for a, b in run_pairs(loops))
+        d_within = d_loop + [run_distance(a, b) for a, b in run_pairs(fused)]
+        m_fused, m_within = statistics.mean(d_fused), statistics.mean(d_within)
+        losses = fused[0]["rows"][1][:, 0].tolist()
+        phase("fused-epoch", f"{label}: {n_fused} fused epoch run(s) vs "
+              f"{n_loop} step loops bit for bit {same} (step loops "
+              f"{same_loops}); distance fused - loop mean {m_fused:.3e} "
+              f"of {len(d_fused)} pairs (from {d_fused[0]:.3e} to "
+              f"{d_fused[-1]:.3e}), within a setting mean {m_within:.3e} "
+              f"of {len(d_within)} (loop - loop from {d_loop[0]:.3e} to "
+              f"{d_loop[-1]:.3e}); STOVE losses "
+              f"{[round(x, 2) for x in losses]} "
+              f"({time.perf_counter() - t:.1f} s)")
+        check(all(math.isfinite(x) for r in fused + loops
+                  for x in r["rows"][1][:, 0].tolist()), f"{label}: finite")
+        check(same or m_fused <= 2 * m_within,
+              f"{label}: fused epoch a mean {m_fused} from the step loop, "
+              f"runs of one setting a mean {m_within} apart")
+        out[label] = {"bitwise": same, "loops_bitwise": same_loops,
+                      "distances": d_fused, "within_distances": d_within,
+                      "distance": m_fused, "within_distance": m_within}
+
+    hold("billiards, kernel path", "stove_billiards", kernel)
+    hold("billiards, plain path", "stove_billiards", [])
+    hold("avoidance, kernel path", "stove_avoidance", kernel)
+    hold("avoidance, plain path", "stove_avoidance", [])
+    hold("billiards bf16, kernel path", "stove_billiards",
+         kernel + ["compute_dtype=bfloat16"])
+    hold("billiards NCCL world 1, kernel path", "stove_billiards", kernel,
+         nccl=True)
+    hold("billiards, kernel path, default cuDNN", "stove_billiards", kernel,
+         deterministic=False)
+
+    # the card test: one capture and 3 replays equal 3 eager steps
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "tests/test_torch_fused_epoch.py",
+         "-m", "cuda", "--noconftest", "-q", "-p", "no:cacheprovider",
+         "-s"], capture_output=True, text=True, timeout=600)
+    tail = res.stdout.strip().splitlines()
+    phase("fused-epoch", f"card test (rc {res.returncode}, "
+          f"{time.perf_counter() - t:.1f} s): "
+          + " | ".join(ln for ln in tail if "replays" in ln or "passed"
+                       in ln or "failed" in ln))
+    check(res.returncode == 0 and any("1 passed" in ln for ln in tail),
+          f"the card test passes:\n{res.stdout[-3000:]}{res.stderr[-2000:]}")
+
+    # ---- timing: the STOVE step of the fused epoch and of the step loop
+    # at B=256, kernel and plain paths, epochs of 8 steps after one that
+    # warms up (and captures), in turns (loop, fused, fused, loop): ms a
+    # step, host clock around the synchronised epoch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fused_")
+    TEMP_DIRS.append(tmp)
+    trainers = {}
+    for path, kw in (("kernels", kernel), ("plain", [])):
+        data = fresh_data()
+        for fused in ("true", "false"):
+            c, _, d = entry.build_config(
+                ["preset=stove_billiards", "num_train=64", "num_test=32",
+                 "steps_per_epoch=8", "supair_only_epochs=0", "nolog=true",
+                 f"run_dir={tmp}", data, f"fused_epoch={fused}", *kw])
+            trainers[path, fused] = tr = Trainer(c, device=d)
+            with on_main_path():
+                tr.train_epoch(0)
+    times = {}
+    epoch = 1
+    for path in ("kernels", "plain"):
+        for fused in ("false", "true", "true", "false"):
+            tr = trainers[path, fused]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with on_main_path():
+                tr.train_epoch(epoch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) / 8 * 1e3
+            times.setdefault((path, fused), []).append(ms)
+            epoch += 1
+    for path in ("kernels", "plain"):
+        f, lp = min(times[path, "true"]), min(times[path, "false"])
+        phase("fused-epoch", f"{path} path, B=256: fused epoch {f:.2f} ms "
+              f"a step, step loop {lp:.2f} ms ({lp / f:.2f}x); runs "
+              f"{[round(x, 2) for x in times[path, 'true']]} / "
+              f"{[round(x, 2) for x in times[path, 'false']]} on {card}")
+        out[f"step_ms_{path}"] = {"fused": f, "loop": lp,
+                                  "runs_fused": times[path, "true"],
+                                  "runs_loop": times[path, "false"]}
+
+    # the device's busy share over an epoch of 3 replayed steps and one of
+    # 3 eager steps on the kernel path, from utils/profiling.py's trace
+    for label, fused in (("replayed", "true"), ("eager", "false")):
+        tr = trainers["kernels", fused]
+        tr.cfg = tr.cfg.with_overrides(steps_per_epoch=3)
+        trace_dir = os.path.join(tmp, f"trace_{label}")
+        with on_main_path(), profiling.trace(trace_dir, cuda=True):
+            tr.train_epoch(epoch)
+            torch.cuda.synchronize()
+        epoch += 1
+        ev, wall = profiling.device_times(
+            os.path.join(trace_dir, profiling.TRACE_FILE))
+        busy = sum(ms for ms, _ in ev.values())
+        phase("fused-epoch", f"3 {label} STOVE steps, kernel path, "
+              f"profiled: device busy {busy:.2f} of {wall:.2f} ms "
+              f"({100 * busy / max(wall, 1e-9):.1f}%), {sum(n for _, n in ev.values())} "
+              f"device events on {card}")
+        out[f"busy_{label}"] = {"device_ms": busy, "wall_ms": wall}
+
+    # no host sync in one eager call of the step body (the window sampling
+    # included), on the kernel path after its warm-up
+    tr = trainers["kernels", "true"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr._sampled_step("stove")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    phase("fused-epoch", "one eager call of the step body under "
+          "torch.cuda.set_sync_debug_mode('error'): no sync")
     return out
 
 

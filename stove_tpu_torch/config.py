@@ -7,9 +7,10 @@ JSON round-trip, so a run directory's `config.json` written by the JAX
 trainer loads here unchanged.  `tests/test_torch_config.py` holds the two
 copies equal field by field.
 
-Fields that only select JAX implementations (`spn_impl`, `scan_impl`,
-`likelihood_impl`, `fused_epoch`, `mesh_*`, ...) are kept so the JSON
-round-trip is lossless; the port reads the ones it implements.
+Fields that only tune JAX's compilation (`donate_state`, `scan_unroll`,
+...) are kept so the JSON round-trip is lossless; the port reads the ones
+it implements, the implementation selectors (`spn_impl`, `scan_impl`,
+`likelihood_impl`), `fused_epoch` and `mesh_*` among them.
 """
 
 from __future__ import annotations

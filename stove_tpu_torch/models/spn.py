@@ -25,7 +25,7 @@ three matrix products (`spn_impl="matmul"`).
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,24 @@ def init_params(spec: SpnSpec, generator: Optional[torch.Generator] = None,
     return params
 
 
+# scope matrices on their devices: (id of the spec's array, dtype, device)
+# -> (the array, which keeps its id from being reused, and the tensor)
+_SCOPES: Dict[Tuple, Tuple[np.ndarray, torch.Tensor]] = {}
+
+
+def scope_matrix(spec: SpnSpec, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """`spec.scopes` (R, 2^D, V) as `dtype` on `device`, copied there once
+    a (spec, dtype, device), so that an evaluation copies nothing from the
+    host."""
+    key = (id(spec.scopes), dtype, str(device))
+    got = _SCOPES.get(key)
+    if got is None:
+        got = _SCOPES[key] = (spec.scopes, torch.as_tensor(
+            spec.scopes, dtype=dtype, device=device))
+    return got[1]
+
+
 def _leaf_std(spec: SpnSpec, raw: torch.Tensor) -> torch.Tensor:
     return spec.min_std + (spec.max_std - spec.min_std) * torch.sigmoid(raw)
 
@@ -110,7 +128,7 @@ def spn_log_prob(spec: SpnSpec, params: Dict[str, torch.Tensor],
     ll = -0.5 * (z * z + _LOG2PI) - torch.log(std)[None]
     if weight is not None:
         ll = ll * weight[:, None, :, None]
-    scope = torch.as_tensor(spec.scopes, dtype=ll.dtype, device=x.device)
+    scope = scope_matrix(spec, ll.dtype, x.device)
     acts = torch.einsum("brvi,rlv->brli", ll, scope)          # (B, R, L, I)
     return _sum_layers(spec, params, acts)
 
@@ -142,7 +160,7 @@ def spn_log_prob_matmul(spec: SpnSpec, params: Dict[str, torch.Tensor],
     a2 = 1.0 / (std * std)
     a1 = mu * a2
     c0 = 0.5 * mu * mu * a2 + 0.5 * _LOG2PI + torch.log(std)
-    scope = torch.as_tensor(spec.scopes, dtype=x.dtype, device=x.device)
+    scope = scope_matrix(spec, x.dtype, x.device)
 
     def fold(coef):                                           # (V, R·L·I)
         return torch.einsum("rlv,rvi->vrli", scope, coef).reshape(

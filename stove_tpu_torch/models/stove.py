@@ -53,6 +53,34 @@ def init_params(cfg: Config, specs: StoveSpecs,
 # slot alignment
 # --------------------------------------------------------------------------
 
+# constants of the step's path, each built once on its device, so that a
+# step copies nothing from the host (and a CUDA graph can capture it)
+_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+
+
+def _permutations(O: int, device: torch.device) -> torch.Tensor:
+    """The O! permutations of range(O) in itertools order, (P, O) long on
+    `device`, built once a (O, device)."""
+    key = ("perms", O, str(device))
+    got = _CONSTANTS.get(key)
+    if got is None:
+        got = _CONSTANTS[key] = torch.tensor(
+            list(itertools.permutations(range(O))), dtype=torch.long,
+            device=device)
+    return got
+
+
+def _constant(value: float, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """`value` as a 0-d `dtype` tensor on `device`, built once."""
+    key = ("scalar", value, dtype, str(device))
+    got = _CONSTANTS.get(key)
+    if got is None:
+        got = _CONSTANTS[key] = torch.tensor(value, dtype=dtype,
+                                             device=device)
+    return got
+
+
 def _exact_assignment(cost: torch.Tensor) -> torch.Tensor:
     """Min-cost assignment by enumerating all O! permutations.
 
@@ -61,8 +89,7 @@ def _exact_assignment(cost: torch.Tensor) -> torch.Tensor:
     minimal permutation in itertools order (argmin's first occurrence).
     """
     B, O, _ = cost.shape
-    perms = torch.tensor(list(itertools.permutations(range(O))),
-                         dtype=torch.long, device=cost.device)      # (P, O)
+    perms = _permutations(O, cost.device)                           # (P, O)
     onehot = F.one_hot(perms, O).to(cost.dtype)                     # (P, O, O)
     percost = torch.einsum("bij,pij->bp", cost, onehot)
     return perms[torch.argmin(percost, dim=-1)]
@@ -72,7 +99,7 @@ def _greedy_assignment(cost: torch.Tensor) -> torch.Tensor:
     """Repeatedly take the globally cheapest unmatched (ref, new) pair; used
     above O = 4 where O! enumeration explodes."""
     B, O, _ = cost.shape
-    big = torch.tensor(1e9, dtype=cost.dtype, device=cost.device)
+    big = _constant(1e9, cost.dtype, cost.device)
     sel = torch.zeros((B, O), dtype=torch.long, device=cost.device)
     c = cost
     for _ in range(O):
@@ -112,15 +139,26 @@ class InferNoise(NamedTuple):
     eps: torch.Tensor         # (B, T−2, O, 6+cl) per-step posterior ε
 
 
+def draw_normals(shape: Tuple[int, ...],
+                 generator: Optional[torch.Generator],
+                 device: torch.device) -> torch.Tensor:
+    """Standard normals drawn from `generator` on its own device (the
+    CPU's default generator without one) and moved to `device` where that
+    differs: a CPU generator serves every device, and a CUDA one draws
+    on the card with no copy."""
+    where = generator.device if generator is not None else None
+    return torch.randn(shape, generator=generator, device=where).to(device)
+
+
 def draw_infer_noise(cfg: Config, B: int, T: int,
                      generator: Optional[torch.Generator],
                      device: torch.device) -> InferNoise:
-    """Standard normals for `infer`, drawn on the CPU from `generator` (so
-    a CPU generator serves every device) and moved to `device`."""
+    """Standard normals for `infer`, drawn from `generator` on its device
+    (`draw_normals`) and moved to `device`."""
     O, D = cfg.num_obj, cfg.full_state_dim
 
     def n(*shape):
-        return torch.randn(shape, generator=generator).to(device)
+        return draw_normals(shape, generator, device)
 
     return InferNoise(n(B, O, 4), n(B, O, 4), n(B, O, cfg.cl),
                       n(B, max(T - 2, 0), O, D))
@@ -215,14 +253,14 @@ class ElboNoise(NamedTuple):
 def draw_elbo_noise(cfg: Config, B: int, T: int,
                     generator: Optional[torch.Generator],
                     device: torch.device) -> ElboNoise:
-    """Standard normals for `elbo`, drawn on the CPU from `generator` and
-    moved to `device`."""
+    """Standard normals for `elbo`, drawn from `generator` on its device
+    (`draw_normals`) and moved to `device`."""
     inf = draw_infer_noise(cfg, B, T, generator, device)
     over = None
     K = cfg.overshoot_k
     if cfg.overshoot_sample and K > 0 and T > K:
-        over = torch.randn((K, B * (T - K), cfg.num_obj, cfg.full_state_dim),
-                           generator=generator).to(device)
+        over = draw_normals((K, B * (T - K), cfg.num_obj,
+                             cfg.full_state_dim), generator, device)
     return ElboNoise(inf, over)
 
 
@@ -266,8 +304,8 @@ def _balanced_bce(pred: torch.Tensor, target: torch.Tensor, balanced: bool,
     bce = -(soft * torch.log(pred + eps)
             + (1 - soft) * torch.log(1 - pred + eps))
     if balanced:
-        pr = (torch.clamp(torch.as_tensor(pos_rate, dtype=pred.dtype,
-                                          device=pred.device), 0.05, 0.95)
+        pr = (torch.clamp(_constant(pos_rate, pred.dtype, pred.device),
+                          0.05, 0.95)
               if pos_rate > 0 else torch.clamp(torch.mean(
                   target if batch_target is None else batch_target),
                   0.05, 0.95))

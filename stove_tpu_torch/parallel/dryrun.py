@@ -112,7 +112,8 @@ def _step(n: int, device: torch.device, data_dir: str) -> Dict:
     frames = torch.rand((n, cfg.window, cfg.img_size, cfg.img_size),
                         generator=torch.Generator().manual_seed(2)
                         ).to(device)
-    twin = torch.Generator().set_state(trainer.noise_gen.get_state())
+    twin = torch.Generator(trainer.noise_gen.device).set_state(
+        trainer.noise_gen.get_state())
     with torch.no_grad():
         noise = stove_lib.draw_elbo_noise(cfg, n, cfg.window, twin, device)
         whole = float(trainer.model.elbo(trainer.params, frames, None, None,
@@ -131,6 +132,34 @@ def _rank(rank: int, device: torch.device, n: int, data_dir: str) -> Dict:
             torch.equal(a, b) for a, b in zip(out["params"],
                                               plain["params"])))
     return out
+
+
+def train_epochs(rank: int, device: torch.device, cfg_json: str,
+                 epochs: int) -> Dict:
+    """A Trainer's first `epochs` epochs (`train_epoch`; no evaluation,
+    no checkpoint), as one of `spawn`'s ranks or alone (rank 0): every
+    step's metrics row by epoch ((steps, M) each) and keys, the parameter
+    leaves and then the optimizer state leaves after them ("state", the
+    first "n_params" the parameters), all on the CPU; whether its epochs
+    were fused, and the step kinds it captured as CUDA graphs.  A harness
+    of the tests and chip_smoke.py, kept here beside `spawn` because a
+    spawned rank runs a module-level function."""
+    from stove_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(Config.from_json(cfg_json), device=device)
+    rows, keys = [], []
+    for e in range(epochs):
+        trainer.train_epoch(e)
+        keys.append(tuple(trainer.epoch_metrics[0]))
+        rows.append(torch.stack([torch.stack(list(m.values()))
+                                 for m in trainer.epoch_metrics]).cpu())
+    params = tree.leaves(trainer.params)
+    return {"rows": rows, "keys": keys, "n_params": len(params),
+            "state": [x.detach().cpu().clone() for x in
+                      params + tree.leaves(trainer.opt_state)
+                      if x is not None],
+            "fused": trainer._use_fused(), "captured": sorted(trainer._graphs),
+            "step": trainer.step}
 
 
 def dryrun_multichip(n: int, device: str = "cpu",

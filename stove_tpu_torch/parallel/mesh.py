@@ -110,6 +110,11 @@ def init_process_group(device: torch.device, rank: Optional[int] = None,
                             **kw)
 
 
+def backend() -> Optional[str]:
+    """The process group's backend ("nccl", "gloo"); None without one."""
+    return dist.get_backend() if dist.is_initialized() else None
+
+
 def world() -> Tuple[int, int]:
     """(rank, world size) of this process; (0, 1) without a group."""
     if dist.is_initialized():

@@ -7,10 +7,18 @@ global-norm clip, written out to optax's semantics (`Optimizer`); periodic
 rollout evaluation through `train/evaluate.py`; checkpoints in the JAX
 package's npz layout, so the port resumes JAX runs and the reverse.
 
+`fused_epoch` (the default) runs each epoch as one device program, as
+the reference's whole-epoch lax.scan does: on the card one step (window
+sampling, the ELBO, the gradient, the all-reduce, the clip and Adam) is
+captured as a CUDA graph after the epoch's first, eager step and
+replayed for the rest, with no host sync between steps; each step's
+metrics row is copied on the device and the log reads the last one once
+an epoch.  `fused_epoch=false` runs the step loop, one eager step at a
+time; so does the fused epoch on the CPU (where the reference's rule,
+`_use_fused`, fuses only at debug sizes) and beside a gloo all-reduce.
+`mode=profile` profiles single eager steps (`train_step`).
+
 Differences from the reference, all deliberate:
-* Steps run one at a time, eagerly.  `fused_epoch` (the reference's whole
-  epoch as one jitted scan) does nothing here; the kernels are where the
-  port fuses work.
 * Data parallelism is one process per device (`parallel/mesh.py`,
   launched by `torch.distributed.run`), where the reference shards one
   jitted step over a mesh.  The step computes the same global function:
@@ -26,9 +34,10 @@ Differences from the reference, all deliberate:
   zeros to the all-reduce.  Only rank 0 writes the run directory (config,
   SPN seeds, metrics, checkpoints, GIFs); every rank evaluates and
   restores.
-* Randomness comes from torch.Generators: window sampling from one on the
-  corpus's device (seeded cfg.seed + 2), the ELBO's normals from one on
-  the CPU (seeded cfg.seed + 3).  A resumed run cannot continue the JAX
+* Randomness comes from torch.Generators on the training device: window
+  sampling from one seeded cfg.seed + 2, the ELBO's and the warm-up's
+  normals from one seeded cfg.seed + 3 (the fused epoch and the step loop
+  draw the same numbers from them).  A resumed run cannot continue the JAX
   PRNG key stored in the checkpoint; it reseeds both generators from
   cfg.seed and the restored step, and says so.
 * The corpora are read through `ensure_dataset`, as the reference's
@@ -47,7 +56,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,6 +67,7 @@ from stove_tpu_torch.envs import data as data_lib
 from stove_tpu_torch.models import supair as supair_lib
 from stove_tpu_torch.models import stove as stove_lib
 from stove_tpu_torch.models.bundle import StoveModel
+from stove_tpu_torch.ops import launches
 from stove_tpu_torch.parallel import mesh as mesh_lib
 from stove_tpu_torch.train import checkpoint as ckpt_lib
 from stove_tpu_torch.train import evaluate as eval_lib
@@ -68,6 +78,8 @@ GROUPS = ("dynamics", "supair")
 TRAIN_METRICS = ("loss", "elbo", "log_lik", "kl", "reward_loss", "overshoot",
                  "overshoot_reward", "open_sigma_nll")
 SUPAIR_METRICS = ("loss", "supair_ll", "mean_scale")
+# the metrics row each kind of step writes
+STEP_KEYS = {"stove": TRAIN_METRICS + ("grad_norm",), "supair": SUPAIR_METRICS}
 # the repository's committed run directories: read, never written
 COMMITTED_RUNS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "ckpts")
@@ -115,7 +127,12 @@ class Optimizer:
       base rate.
 
     State per group: {"count", "mu", "nu", "lr_count"} ("lr_count" None
-    without a schedule), the leaves of optax's state tree.
+    without a schedule), the leaves of optax's state tree.  `update` reads
+    nothing back to the host: the schedule's step size is computed on the
+    state's device from "lr_count" (`lr`), and the bias corrections' bases
+    are tensors built once a device.  It updates the parameters and the
+    state in place, so a captured step (`Trainer`'s fused epoch) replays
+    on the same storage.
     """
 
     def __init__(self, cfg: Config):
@@ -123,25 +140,45 @@ class Optimizer:
         self.base = {"supair": cfg.supair_lr, "dynamics": cfg.dynamics_lr}
         self.scheduled = cfg.debug_anneal_lr > 0
         self.steps = anneal_steps(cfg)
+        self._bases: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def lr(self, group: str, count: int) -> float:
+    def lr(self, group: str, count: torch.Tensor):
+        """The step size at schedule count `count` (an integer tensor), a
+        0-d float32 tensor on the count's device: optax's linear_schedule
+        / cosine_decay_schedule, evaluated in float64 and rounded once to
+        float32 (rounding each term to float32 as well moved the two-rank
+        run of tests/test_torch_parallel.py past its parameter
+        tolerance); the base rate, a float, without a schedule."""
         base = self.base[group]
         if not self.scheduled:
             return base
         alpha = self.cfg.anneal_final
+        c = count.to(torch.float64)
         if self.cfg.anneal_shape == "cosine":
-            c = min(float(count), float(self.steps))
-            return base * ((1 - alpha) * 0.5
-                           * (1 + math.cos(math.pi * c / self.steps)) + alpha)
-        c = min(max(count, 0), self.steps)
-        frac = 1 - c / self.steps
-        return (base - alpha * base) * frac + alpha * base
+            c = torch.clamp(c, max=float(self.steps))
+            decay = 0.5 * (1 + torch.cos(math.pi * c / self.steps))
+            lr = base * ((1 - alpha) * decay + alpha)
+        else:
+            frac = 1 - torch.clamp(c, 0, self.steps) / self.steps
+            lr = (base - alpha * base) * frac + alpha * base
+        return lr.to(torch.float32)
+
+    def bias_bases(self, device: torch.device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """b1 and b2 as float32 tensors on `device`, built once."""
+        got = self._bases.get(device)
+        if got is None:
+            got = self._bases[device] = (
+                torch.tensor(self.cfg.adam_b1, device=device),
+                torch.tensor(self.cfg.adam_b2, device=device))
+        return got
 
     def init(self, params: Dict) -> Dict:
         def zeros(g):
             return tree.map_leaves(torch.zeros_like, params[g])
 
         dev = tree.leaves(params)[0].device
+        self.bias_bases(dev)
         return {g: {"count": torch.zeros((), dtype=torch.int32, device=dev),
                     "mu": zeros(g), "nu": zeros(g),
                     "lr_count": (torch.zeros((), dtype=torch.int32,
@@ -162,10 +199,10 @@ class Optimizer:
             st = state[grp]
             st["count"] += 1
             count = st["count"].to(torch.float32)
-            bc1 = 1 - torch.pow(torch.tensor(b1, device=count.device), count)
-            bc2 = 1 - torch.pow(torch.tensor(b2, device=count.device), count)
-            lr = self.lr(grp, int(st["lr_count"])) if self.scheduled \
-                else self.base[grp]
+            base1, base2 = self.bias_bases(count.device)
+            bc1 = 1 - torch.pow(base1, count)
+            bc2 = 1 - torch.pow(base2, count)
+            lr = self.lr(grp, st["lr_count"])
             for p, g, mu, nu in zip(tree.leaves(params[grp]),
                                     tree.leaves(grads[grp]),
                                     tree.leaves(st["mu"]),
@@ -178,6 +215,38 @@ class Optimizer:
             if self.scheduled:
                 st["lr_count"] += 1
         return norm
+
+
+class CapturedStep:
+    """A training step captured as one CUDA graph, replayed in place.
+
+    `step()` runs once under `torch.cuda.graph` (on its side stream, after
+    the caller has run the step eagerly at least once, as whole-network
+    capture requires); its output, the metrics row, lives in the graph's
+    memory pool and is overwritten by every replay.  `generators` are
+    registered with the graph, so each replay draws from them where an
+    eager step would, and advances them by as much.  The kernel launches
+    the capture counted, which ran nothing, are taken back out of the
+    wrappers' counters and added at every replay (`ops/launches.py`).
+    """
+
+    def __init__(self, step: Callable[[], torch.Tensor],
+                 generators: Sequence[torch.Generator]):
+        self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            self.graph.register_generator_state(g)
+        snap = launches.by_library()
+        with torch.cuda.graph(self.graph):
+            self.out = step()
+        self.per_replay = launches.since(snap)
+        launches.add(self.per_replay, -1)
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        launches.add(self.per_replay)
+        for k, v in self.per_replay.items():
+            launches.REPLAYED[k] = launches.REPLAYED.get(k, 0) + v
+        return self.out
 
 
 class Trainer:
@@ -229,6 +298,8 @@ class Trainer:
         # every step's metrics (0-d tensors) of the latest epoch; the log
         # keeps only the last step's, as the reference's does
         self.epoch_metrics: List[Dict[str, torch.Tensor]] = []
+        # the fused epoch's captured steps by kind
+        self._graphs: Dict[str, CapturedStep] = {}
 
         self.start_epoch = 0
         if cfg.restore is not None:
@@ -237,16 +308,17 @@ class Trainer:
     def _seed_generators(self, seed: int) -> None:
         self.data_gen = torch.Generator(device=self.device).manual_seed(
             seed + 2)
-        self.noise_gen = torch.Generator().manual_seed(seed + 3)
+        self.noise_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 3)
 
     # ------------------------------------------------------------- steps
     def _apply(self, loss: Optional[torch.Tensor],
                metrics: Dict[str, torch.Tensor], keys, share: float
-               ) -> Dict[str, torch.Tensor]:
+               ) -> torch.Tensor:
         """The gradient of `share` x this rank's `loss` and its `metrics`
         (None and zeros on a rank that sits out), summed over the ranks in
         one all-reduce, then one optimizer step; returns the batch's
-        metrics with the gradients' global norm."""
+        metrics and the gradients' global norm as one float32 row."""
         leaves = tree.leaves(self.params)
         got = ([None] * len(leaves) if loss is None else
                torch.autograd.grad(loss * share, leaves, allow_unused=True))
@@ -257,13 +329,14 @@ class Trainer:
         summed = mesh_lib.all_reduce_sum(grads + vals)
         grads = tree.unflatten(self.params, summed[:len(leaves)])
         norm = self.optimizer.update(self.params, grads, self.opt_state)
-        self.step += 1
-        return dict(zip(keys, summed[len(leaves):]), grad_norm=norm)
+        return torch.stack([v.to(torch.float32)
+                            for v in summed[len(leaves):]] + [norm])
 
-    def train_step(self, batch: Dict[str, torch.Tensor]
-                   ) -> Dict[str, torch.Tensor]:
+    def _stove_body(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One ELBO step (trainer.py:172-194) on this rank's rows of the
-        batch; the batch's metrics as 0-d tensors."""
+        batch: the ELBO noise drawn from `noise_gen`, the gradient, the
+        all-reduce and the optimizer; the metrics row (STEP_KEYS["stove"]).
+        Nothing here reads the device back, so a CUDA graph captures it."""
         cfg = self.cfg
         ac = cfg.action_conditioned
         frames = batch["frames"]
@@ -287,15 +360,15 @@ class Trainer:
         return self._apply(None if out is None else out.loss, metrics,
                            TRAIN_METRICS, self.mesh.share(B))
 
-    def supair_step(self, batch: Dict[str, torch.Tensor]
-                    ) -> Dict[str, torch.Tensor]:
+    def _supair_body(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """SuPAIR-only warm-up step on the window's frames
-        (trainer.py:196-212), this rank's windows' frames."""
+        (trainer.py:196-212), this rank's windows' frames; the metrics row
+        (STEP_KEYS["supair"]).  Capturable as `_stove_body`."""
         cfg = self.cfg
         B = batch["frames"].shape[0]
         frames = batch["frames"].reshape(-1, cfg.img_size, cfg.img_size)
-        noise = torch.randn((frames.shape[0], cfg.num_obj, 4),
-                            generator=self.noise_gen).to(frames.device)
+        noise = stove_lib.draw_normals((frames.shape[0], cfg.num_obj, 4),
+                                       self.noise_gen, frames.device)
         rows = self.mesh.rows(B)
         T = frames.shape[0] // B
         frame_rows = slice(rows.start * T, rows.stop * T)
@@ -306,27 +379,86 @@ class Trainer:
             metrics = {"loss": -diag["supair_ll"],
                        "supair_ll": diag["supair_ll"],
                        "mean_scale": diag["boxes_mean_scale"]}
-        out = self._apply(None if value is None else -value, metrics,
+        row = self._apply(None if value is None else -value, metrics,
                           SUPAIR_METRICS, self.mesh.share(B))
-        del out["grad_norm"]
-        return out
+        return row[:len(SUPAIR_METRICS)]
+
+    def _body(self, kind: str):
+        return self._stove_body if kind == "stove" else self._supair_body
+
+    def train_step(self, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """One ELBO step, eagerly; the batch's metrics as 0-d tensors."""
+        row = self._stove_body(batch)
+        self.step += 1
+        return dict(zip(STEP_KEYS["stove"], row))
+
+    def supair_step(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """One SuPAIR-only warm-up step, eagerly; its metrics."""
+        row = self._supair_body(batch)
+        self.step += 1
+        return dict(zip(STEP_KEYS["supair"], row))
 
     def steps_per_epoch(self) -> int:
         if self.cfg.steps_per_epoch:
             return self.cfg.steps_per_epoch
         return max(1, self.train_ep.frames.shape[0] // self.cfg.batch_size)
 
+    def _use_fused(self) -> bool:
+        """Whether epochs are fused (trainer.py:253-261): cfg.fused_epoch
+        on the card, and on the CPU only at debug sizes, so that tests
+        exercise the path."""
+        return self.cfg.fused_epoch and (self.device.type == "cuda"
+                                         or self.cfg.debug)
+
+    def _captures(self) -> bool:
+        """Whether a fused epoch replays a captured step: on the card,
+        unless the all-reduce goes through a backend other than NCCL
+        (gloo's cannot be captured)."""
+        return (self.device.type == "cuda"
+                and mesh_lib.backend() in (None, "nccl"))
+
+    def _sampled_step(self, kind: str) -> torch.Tensor:
+        """One step of `kind` from the generators alone: a window batch
+        sampled from `data_gen`, then the body; its metrics row.  What
+        every epoch runs, and what the fused epoch captures."""
+        batch = data_lib.sample_windows(self.train_ep, self.cfg,
+                                        self.data_gen, self.cfg.batch_size)
+        return self._body(kind)(batch)
+
     def train_epoch(self, epoch: int) -> Dict[str, float]:
+        """One epoch of steps_per_epoch() steps, SuPAIR-only before
+        cfg.supair_only_epochs.  Fused where `_use_fused` and `_captures`,
+        the counterpart of the reference's whole-epoch lax.scan
+        (trainer.py:214-245): while the kind has no graph its first step
+        runs eagerly (a real step of the epoch; it builds the kernels),
+        then one step is captured (`CapturedStep`, kept across epochs: the
+        shapes never change) and replayed for the rest, with no host sync
+        between steps; a failed capture or replay raises.  Otherwise (the
+        step loop, and the fused epoch on the CPU or beside a gloo
+        all-reduce) every step runs eagerly.  Each step's metrics row is
+        copied into one (n, M) tensor on the device; keeps them all in
+        `epoch_metrics`, logs and returns the last, read from the device
+        once."""
         cfg = self.cfg
         warmup = epoch < cfg.supair_only_epochs
-        step_fn = self.supair_step if warmup else self.train_step
-        self.epoch_metrics = []
-        for _ in range(self.steps_per_epoch()):
-            batch = data_lib.sample_windows(self.train_ep, cfg, self.data_gen,
-                                            cfg.batch_size)
-            self.epoch_metrics.append({k: v.detach() for k, v in
-                                       step_fn(batch).items()})
-        out = {k: float(v) for k, v in self.epoch_metrics[-1].items()}
+        kind = "supair" if warmup else "stove"
+        n = self.steps_per_epoch()
+        keys = STEP_KEYS[kind]
+        captures = self._use_fused() and self._captures()
+        graph = self._graphs.get(kind) if captures else None
+        rows = torch.empty((n, len(keys)), device=self.device)
+        for i in range(n):
+            if captures and graph is None and i > 0:
+                graph = self._graphs[kind] = CapturedStep(
+                    lambda: self._sampled_step(kind),
+                    (self.data_gen, self.noise_gen))
+            rows[i] = (graph.replay() if graph is not None
+                       else self._sampled_step(kind))
+            self.step += 1
+        self.epoch_metrics = [dict(zip(keys, row)) for row in rows]
+        out = dict(zip(keys, rows[-1].tolist()))
         self.logger.log(self.step, "train", epoch=epoch, warmup=warmup, **out)
         return out
 
@@ -438,6 +570,8 @@ class Trainer:
         self.step = step
         self.start_epoch = epoch + 1
         self._seed_generators(self.cfg.seed * 1_000_003 + step)
+        # the captured steps hold the old optimizer state and generators
+        self._graphs = {}
         print(f"[restore] {run_dir} at step {step}, epoch {epoch}: the JAX "
               "PRNG key is not used; window and ELBO noise generators "
               f"reseeded from seed {self.cfg.seed} and step {step}",

@@ -65,6 +65,17 @@ def test_optimizer_step_matches_optax(clip, shape):
     topt = ttrainer.Optimizer(tc)
     tstate = topt.init(tp)
     for step in range(4):
+        if shape:
+            # the step size, computed on the state's device from its
+            # schedule count, against optax's schedule at that count
+            steps = jtrainer.anneal_steps(jc)
+            for grp, base in (("supair", 0.01), ("dynamics", 0.003)):
+                sched = (optax.cosine_decay_schedule(base, steps, alpha=0.1)
+                         if shape == "cosine" else
+                         optax.linear_schedule(base, 0.1 * base, steps))
+                got = topt.lr(grp, tstate[grp]["lr_count"])
+                assert got.dtype == torch.float32 and got.ndim == 0
+                np.testing.assert_allclose(got, sched(step), rtol=1e-6)
         grads = _tree(rng)
         jg = jax.tree_util.tree_map(jnp.asarray, grads)
         upd, jstate = jopt.update(jg, jstate, jp)
